@@ -1,0 +1,444 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (zonos_tpu_torch) on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Phases; any failure exits non-zero:
+  0. the card: name and power limit (nvidia-smi), TF32 off for every f32 compare;
+  1. build every CUDA kernel from zonos_tpu_torch/csrc (one nvcc per source, in parallel);
+  2. each kernel against its plain PyTorch version on the card at the main
+     path's shapes, with times (CUDA events, median of 50 after warm-up, L2
+     flushed before each launch), the least time the card could take, and a
+     PyTorch library call of the same function as a yardstick;
+  3. a 2-layer model at full width (d 2048), int8, on the card in bf16 with
+     the kernels against the same weights on the CPU in f32 with the plain
+     versions: prefill + 8 teacher-forced decode steps, logits compared, and
+     a short DAC decode compared the same way;
+  4. the main path: the flagship transformer (24 layers), int8 weights and KV,
+     860 frames (10 s) at cfg 2.0 and min-p 0.1, then the full-size DAC to
+     int16 PCM; run twice, the second run timed with every kernel's launch
+     count set to 0 before it and checked after it;
+  5. a 32-frame generate under torch.profiler: device time per decode step
+     against the step's wall time from phase 4, and the top kernels.
+Prints one line per kernel check, a ``{"kernels": [...]}`` line, the card's
+name and power limit, and last ``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
+BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core rate
+REPS = 50
+
+
+def _card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def _time_ms(fn, flush: torch.Tensor) -> float:
+    """Median device time of fn over REPS launches, each after an L2 flush.
+
+    A spin kernel queued before each timed launch keeps the card busy while
+    the host enqueues it, so the events bracket device time only.
+    """
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(REPS):
+        flush.zero_()
+        torch.cuda._sleep(200_000)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def _bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / BF16_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _corr(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float(np.corrcoef(a.double().cpu().numpy().ravel(), b.double().cpu().numpy().ravel())[0, 1])
+
+
+def _fail(msg: str) -> None:
+    raise SystemExit(f"chip_smoke FAILED: {msg}")
+
+
+# ---------------------------------------------------------------------------
+# Phase 2: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def _k1_cases(gen, flush):
+    from zonos_tpu_torch.ops import cuda_matmul as M
+    from zonos_tpu_torch.ops.quant import quantize_int8
+
+    rows = []
+    for b in (2, 16):
+        for k, n in ((2048, 3072), (2048, 2048), (2048, 9225)):
+            x = torch.randn((b, k), generator=gen, device="cuda").to(torch.bfloat16)
+            w = quantize_int8(torch.randn((k, n), generator=gen, device="cuda") / k ** 0.5)
+            y = M.int8_matmul(x, w["q"], w["s"])
+            ref = M.int8_matmul_plain(x, w["q"], w["s"])
+            torch.cuda.synchronize()
+            err = (y - ref).abs()
+            # Same exact products (bf16 x int8 in f32), only the order of the f32
+            # sums differs: rtol 1e-3, atol 1e-3 of the output's largest value.
+            tol = 1e-3 * ref.abs() + 1e-3 * ref.abs().max()
+            if not bool((err <= tol).all()) or not torch.isfinite(y).all():
+                _fail(f"K1 int8_matmul B={b} {k}->{n}: max err {err.max().item():.3e}")
+            w_bf16 = (w["q"].float() * w["s"]).to(torch.bfloat16)
+            row = {
+                "case": f"B={b} {k}->{n}", "max_abs_err": err.max().item(),
+                "ms": _time_ms(lambda: M.int8_matmul(x, w["q"], w["s"]), flush),
+                "plain_ms": _time_ms(lambda: M.int8_matmul_plain(x, w["q"], w["s"]), flush),
+                # yardstick: a bf16 matmul against the pre-dequantized weight (twice the weight bytes)
+                "library_ms": _time_ms(lambda: torch.matmul(x, w_bf16), flush),
+            }
+            row["bound_ms"], row["bound_by"] = _bound_ms(k * n + b * k * 2 + n * 4 + b * n * 4, 2 * b * k * n)
+            rows.append(row)
+            print("K1", json.dumps(row), flush=True)
+    return rows
+
+
+def _k2_cases(gen, flush):
+    from zonos_tpu_torch.models.transformer import _kv_quantize
+    from zonos_tpu_torch.ops import cuda_attention as A
+
+    b, hkv, hq, dh, s = 2, 4, 16, 128, 1152
+    rows = []
+    for case, wi, gap_start, gap in (("mid-cache", 700, 0, None), ("gap", 900, 128, [40, 0])):
+        q = torch.randn((b, 1, hq, dh), generator=gen, device="cuda").to(torch.bfloat16)
+        kq, ks = _kv_quantize(torch.randn((b, s, hkv, dh), generator=gen, device="cuda") * 2.0)
+        vq, vs = _kv_quantize(torch.randn((b, s, hkv, dh), generator=gen, device="cuda"))
+        kq, vq = kq.transpose(1, 2).contiguous(), vq.transpose(1, 2).contiguous()
+        ks, vs = ks.transpose(1, 2).contiguous(), vs.transpose(1, 2).contiguous()
+        pad_host = [3, 17]
+        pad = torch.tensor(pad_host, dtype=torch.int32, device="cuda")
+        wi_t = torch.tensor([wi], dtype=torch.int32, device="cuda")
+        gap_len = None if gap is None else torch.tensor(gap, dtype=torch.int32, device="cuda")
+        args = (q, kq, ks, vq, vs, wi_t, pad, gap_start, gap_len)
+        out = A.attn_core_int8(*args)
+        ref = A.attn_core_int8_plain(*args)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        corr = _corr(out.float(), ref.float())
+        # The JAX kernel test's own bar: the bf16 rounding of p * vs happens on
+        # chunk-local weights here and on normalised ones in the plain version.
+        if err > 2e-2 or corr <= 0.9995:
+            _fail(f"K2 attn_core_int8 {case}: max err {err:.3e}, corr {corr:.6f}")
+        # yardstick: SDPA on K/V dequantized to bf16, with the same mask
+        from zonos_tpu_torch.ops.attention import decode_mask
+
+        mask = decode_mask(s, pad, wi, gap_start=gap_start, gap_len=gap_len)[:, None]  # [B,1,1,S]
+        kd = (kq.float() * ks[..., None]).to(torch.bfloat16)
+        vd = (vq.float() * vs[..., None]).to(torch.bfloat16)
+        qt = q.transpose(1, 2)
+        lib = lambda: F.scaled_dot_product_attention(qt, kd, vd, attn_mask=mask, enable_gqa=True)  # noqa: E731
+        n_valid = [
+            sum(1 for j in range(s) if pad_host[i] <= j <= wi and not (gap is not None and gap_start <= j < gap_start + gap[i]))
+            for i in range(b)
+        ]
+        nbytes = sum(hkv * n * (2 * dh + 2 * 4) for n in n_valid) + 2 * b * hq * dh * 2
+        ops = sum(hq * n * dh * 4 for n in n_valid)
+        row = {
+            "case": case, "max_abs_err": err, "corr": corr,
+            "ms": _time_ms(lambda: A.attn_core_int8(*args), flush),
+            "plain_ms": _time_ms(lambda: A.attn_core_int8_plain(*args), flush),
+            "library_ms": _time_ms(lib, flush),
+        }
+        row["bound_ms"], row["bound_by"] = _bound_ms(nbytes, ops)
+        rows.append(row)
+        print("K2", json.dumps(row), flush=True)
+    return rows
+
+
+def _k3_cases(gen, flush):
+    from zonos_tpu_torch.ops import cuda_matmul as M
+    from zonos_tpu_torch.ops.quant import quantize_int8
+
+    b, d, f = 2, 2048, 8192
+    x = torch.randn((b, d), generator=gen, device="cuda").to(torch.bfloat16)
+    w1 = quantize_int8(torch.randn((d, 2 * f), generator=gen, device="cuda") / d ** 0.5)
+    w2 = quantize_int8(torch.randn((f, d), generator=gen, device="cuda") / f ** 0.5)
+    s1 = w1["s"].reshape(-1)
+    w1y, w1g = w1["q"][:, :f].contiguous(), w1["q"][:, f:].contiguous()
+    s1y, s1g = s1[:f].contiguous(), s1[f:].contiguous()
+    fused = lambda: M.fused_mlp_int8(x, w1["q"], w1["s"], w2["q"], w2["s"])  # noqa: E731
+    split = lambda: M.fused_mlp_int8_split(x, w1y, s1y, w1g, s1g, w2["q"], w2["s"])  # noqa: E731
+    plain = lambda: M.fused_mlp_int8_plain(x, w1["q"], w1["s"], w2["q"], w2["s"])  # noqa: E731
+    ref = plain()
+    w1_bf16 = (w1["q"].float() * w1["s"]).to(torch.bfloat16)
+    w2_bf16 = (w2["q"].float() * w2["s"]).to(torch.bfloat16)
+
+    def library():  # yardstick: the same MLP as bf16 matmuls on pre-dequantized weights
+        y, g = torch.matmul(x, w1_bf16).chunk(2, dim=-1)
+        return torch.matmul(y * F.silu(g), w2_bf16)
+
+    nbytes = d * 2 * f + f * d + (2 * f + d) * 4 + b * d * 2 + b * d * 4
+    ops = 2 * b * d * 2 * f + 2 * b * f * d
+    rows = []
+    for name, fn in (("K3", fused), ("K3s", split)):
+        out = fn()
+        torch.cuda.synchronize()
+        err = (out - ref).abs()
+        # h is rounded to bf16 in both; a y or gate summed in another order can
+        # round h one bf16 ulp apart: rtol 2e-2, atol 2e-2.
+        if not bool((err <= 2e-2 + 2e-2 * ref.abs()).all()) or not torch.isfinite(out).all():
+            _fail(f"{name}: max err {err.max().item():.3e}")
+        row = {
+            "case": f"B={b} D={d} F={f}", "max_abs_err": err.max().item(),
+            "ms": _time_ms(fn, flush), "plain_ms": _time_ms(plain, flush),
+            "library_ms": _time_ms(library, flush),
+        }
+        row["bound_ms"], row["bound_by"] = _bound_ms(nbytes, ops)
+        rows.append((name, row))
+        print(name, json.dumps(row), flush=True)
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# Phase 3: two full-width layers, card (bf16, kernels) vs CPU (f32, plain)
+# ---------------------------------------------------------------------------
+
+def _phase_small_model():
+    from zonos_tpu_torch.bridge import params_from_jax
+    from zonos_tpu_torch.codec.dac import DACAutoencoder
+    from zonos_tpu_torch.config import zonos_v01_transformer_config
+    from zonos_tpu_torch.models.backbone import backbone_forward, create_cache
+    from zonos_tpu_torch.models.zonos import Zonos
+    from zonos_tpu_torch.ops.sampling import SamplingParams
+    from zonos_tpu_torch.runtime.generate import GenerateStatics, _decode_logits, apply_heads, embed_codes
+
+    full = zonos_v01_transformer_config()
+    cfg = dataclasses.replace(full, backbone=dataclasses.replace(full.backbone, n_layer=2, attn_layer_idx=(0, 1)))
+    cpu = Zonos.from_config(cfg, seed=1, dtype=torch.float32, device="cpu").quantize()
+    card_params = params_from_jax(_to_numpy(cpu.params), device="cuda", dtype=torch.bfloat16)
+    statics = GenerateStatics(cfg=cfg, sampling=SamplingParams(temperature=0.0), prefill_len=128,
+                              delayed_len=1024, cache_len=1152, batch_size=1, kv_int8=True)
+    cond = np.random.default_rng(1).normal(size=(2, 80, 2048)).astype(np.float32) * 0.05
+    n_q = cfg.codebook_dimension
+
+    def prefill(params, device, dtype):
+        x_cond = torch.nn.functional.pad(torch.as_tensor(cond, device=device).to(dtype), (0, 0, 47, 0))
+        first = torch.full((1, n_q, 1), cfg.masked_token_id, dtype=torch.int32, device=device)
+        pre = embed_codes(params["embeddings"], first)
+        x = torch.cat([x_cond, torch.cat([pre, pre], 0)], dim=1)
+        pad = torch.full((2,), 47, dtype=torch.int32, device=device)
+        cache = create_cache(cfg.backbone, 2, 1152, dtype=dtype, kv_int8=True, device=device)
+        h, cache = backbone_forward(params["backbone"], cfg.backbone, x, cache, 0, pad, 128)
+        lg = apply_heads(params["heads"], h[:, -1:], n_q)[:, :, 0]
+        return lg[:1] * 2.0 - lg[1:], cache, pad  # uncond + (cond - uncond) * 2
+
+    with torch.no_grad():
+        lg_cpu, cache_cpu, pad_cpu = prefill(cpu.params, "cpu", torch.float32)
+        lg_gpu, cache_gpu, pad_gpu = prefill(card_params, "cuda", torch.bfloat16)
+        corrs = [_corr(lg_gpu, lg_cpu)]
+        for t in range(8):
+            frame = lg_cpu.argmax(-1).to(torch.int32)[..., None]  # teacher-forced from the CPU run
+            lg_cpu, _ = _decode_logits(cpu.params, statics, frame, cache_cpu, 128 + t, pad_cpu, 2.0)
+            lg_gpu, _ = _decode_logits(card_params, statics, frame.cuda(), cache_gpu, 128 + t, pad_gpu, 2.0)
+            corrs.append(_corr(lg_gpu, lg_cpu))
+    print("phase3 logits corr (prefill, 8 decode steps):", json.dumps([round(c, 6) for c in corrs]), flush=True)
+    # bf16 activations and KV on the card against f32 on the CPU: corr > 0.999
+    if min(corrs) <= 0.999:
+        _fail(f"phase 3: 2-layer card/CPU logits correlation {min(corrs):.6f} <= 0.999")
+
+    dac_gpu = DACAutoencoder(dtype=torch.bfloat16, frame_bucket=16, device="cuda", seed=3)
+    dac_cpu = DACAutoencoder(params=params_from_jax(_to_numpy(dac_gpu.params), device="cpu"),
+                             dtype=torch.float32, frame_bucket=16, device="cpu")
+    codes = np.random.default_rng(2).integers(0, 1024, size=(1, 9, 16)).astype(np.int32)
+    wav_gpu, wav_cpu = dac_gpu.decode(codes), dac_cpu.decode(codes)
+    c = _corr(torch.as_tensor(wav_gpu), torch.as_tensor(wav_cpu))
+    print(f"phase3 DAC 16 frames card bf16 vs CPU f32: corr {c:.6f}", flush=True)
+    if not np.isfinite(wav_gpu).all() or c <= 0.99:  # bf16 convolutions through 4 upsampling blocks
+        _fail(f"phase 3: DAC card/CPU correlation {c:.6f} <= 0.99")
+
+
+def _to_numpy(tree):
+    """Params tree of tensors → numpy (bf16 widened to f32, int8 kept), for the bridge."""
+    if isinstance(tree, dict):
+        return {k: _to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_numpy(v) for v in tree]
+    return (tree.float() if tree.dtype == torch.bfloat16 else tree).cpu().numpy()
+
+
+# ---------------------------------------------------------------------------
+# Phase 4: the main path at full size
+# ---------------------------------------------------------------------------
+
+def _phase_main_path(card: str):
+    from zonos_tpu_torch.config import zonos_v01_transformer_config
+    from zonos_tpu_torch.models.zonos import Zonos
+    from zonos_tpu_torch.ops import cuda_attention as A
+    from zonos_tpu_torch.ops import cuda_matmul as M
+    from zonos_tpu_torch.ops.sampling import SamplingParams
+
+    cfg = zonos_v01_transformer_config()
+    t0 = time.perf_counter()
+    model = Zonos.from_config(cfg, seed=0, dtype=torch.bfloat16, device="cuda").quantize()
+    ae = model.autoencoder
+    torch.cuda.synchronize()
+    print(f"phase4 model init + int8 quantize: {time.perf_counter() - t0:.1f} s", flush=True)
+    cond = np.random.default_rng(0).normal(size=(2, 80, cfg.backbone.d_model)).astype(np.float32) * 0.05
+    frames = 860
+
+    def run(seed):
+        stats = {}
+        t = time.perf_counter()
+        codes = model.generate(cond, max_new_tokens=frames, cfg_scale=2.0, seed=seed,
+                               sampling_params=SamplingParams(min_p=0.1), forbid_eos=True,
+                               kv_int8=True, stats=stats)
+        t_gen = time.perf_counter() - t
+        t = time.perf_counter()
+        pcm = ae.decode_device(codes, to_int16=True).cpu().numpy()
+        return codes, pcm, stats, t_gen, time.perf_counter() - t
+
+    with torch.no_grad():
+        run(1)  # warm-up: kernel libraries loaded, cuDNN plans picked
+        kernels = (M.int8_matmul, A.attn_core_int8, M.fused_mlp_int8, M.fused_mlp_int8_split)
+        for k in kernels:
+            k.launches = 0
+        codes, pcm, stats, t_gen, t_dac = run(2)
+        counts = {k.__name__: k.launches for k in kernels}
+
+    steps, L = stats["decode_steps"], cfg.backbone.n_layer
+    # per decode step: in_proj + out_proj per layer and the output heads on K1,
+    # one K2 and one K3 per layer; the prefill's last-position heads on K1.
+    expected = {"int8_matmul": steps * (2 * L + 1) + 1, "attn_core_int8": steps * L,
+                "fused_mlp_int8": steps * L, "fused_mlp_int8_split": 0}
+    print("phase4 launches:", json.dumps(counts), "expected:", json.dumps(expected), flush=True)
+    if counts != expected:
+        _fail(f"phase 4: launch counts {counts} != expected {expected}")
+    if codes.shape != (1, cfg.codebook_dimension, frames) or codes.min() < 0 or codes.max() > 1023:
+        _fail(f"phase 4: codes shape {codes.shape}, range [{codes.min()}, {codes.max()}]")
+    if pcm.shape != (1, frames * 512) or pcm.dtype != np.int16:
+        _fail(f"phase 4: PCM shape {pcm.shape} dtype {pcm.dtype}")
+    audio_s = frames * 512 / 44100
+    result = {
+        "card": card, "frames": frames, "audio_s": audio_s, "decode_steps": steps,
+        "prefill_ms": stats["prefill_s"] * 1e3,
+        "decode_ms_per_frame": stats["decode_s"] * 1e3 / steps,
+        "generate_s": t_gen, "dac_ms": t_dac * 1e3, "rtf": audio_s / (t_gen + t_dac),
+        "pcm_rms": float(np.sqrt(np.mean(pcm.astype(np.float64) ** 2))),
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+    }
+    print("phase4 main path:", json.dumps(result), flush=True)
+    return counts, model, cond, result
+
+
+def _phase_profile(model, cond, result):
+    """Device time of a short generate under torch.profiler: the busy share of
+    the decode step and the kernels that take the device's time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from zonos_tpu_torch.ops.sampling import SamplingParams
+
+    def run():
+        stats = {}
+        model.generate(cond, max_new_tokens=32, cfg_scale=2.0, seed=3, sampling_params=SamplingParams(min_p=0.1),
+                       forbid_eos=True, kv_int8=True, stats=stats)
+        return stats
+
+    with torch.no_grad():
+        run()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            stats = run()
+    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    if device_ms == 0:
+        print("phase5 profile: device time not measured (the profiler saw no kernels)", flush=True)
+        return
+    steps = stats["decode_steps"]
+    per_step = device_ms / (steps + 1)  # the prefill counted as one more step
+    top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:10]
+    print("phase5 profile:", json.dumps({
+        "generate_frames": 32, "decode_steps": steps, "device_ms_total": device_ms,
+        "kernel_launches": sum(e.count for e in kernels),
+        "device_ms_per_step": per_step,
+        "busy_share_vs_phase4_step": per_step / result["decode_ms_per_frame"],
+        "top_kernels": [{"name": e.key[:80], "ms": e.self_device_time_total / 1e3, "count": e.count} for e in top],
+    }), flush=True)
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
+        return 1
+    from zonos_tpu_torch.ops import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = _card_line()
+    print(f"card: {card}", flush=True)
+    print(json.dumps({"torch": torch.__version__, "cuda": torch.version.cuda,
+                      "python": sys.version.split()[0]}), flush=True)
+
+    t = time.perf_counter()
+    logs = _build.build_all()
+    print(f"phase1 build: {time.perf_counter() - t:.1f} s", flush=True)
+    for name, log in logs.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  {name}: {line.strip()}", flush=True)
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")  # > the 50 MB L2
+    k1 = _k1_cases(gen, flush)
+    k2 = _k2_cases(gen, flush)
+    k3 = dict(_k3_cases(gen, flush))
+    del flush
+
+    _phase_small_model()
+    counts, model, cond, result = _phase_main_path(card)
+    _phase_profile(model, cond, result)
+    del model
+
+    def entry(name, source, replaces, rows, launches):
+        main_row = rows[0]
+        return {
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches, "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "ms": main_row["ms"], "plain_ms": main_row["plain_ms"], "bound_ms": main_row["bound_ms"],
+            "bound_by": main_row["bound_by"], "library_ms": main_row["library_ms"],
+        }
+
+    kernels = [
+        entry("int8_matmul", "zonos_tpu_torch/csrc/int8_matmul.cu", "zonos_tpu/ops/pallas_matmul.py:54",
+              k1, counts["int8_matmul"]),
+        entry("attn_core_int8", "zonos_tpu_torch/csrc/attn_core_int8.cu", "zonos_tpu/ops/pallas_attention.py:98",
+              k2, counts["attn_core_int8"]),
+        entry("fused_mlp_int8", "zonos_tpu_torch/csrc/fused_mlp_int8.cu", "zonos_tpu/ops/pallas_matmul.py:200",
+              [k3["K3"]], counts["fused_mlp_int8"]),
+        entry("fused_mlp_int8_split", "zonos_tpu_torch/csrc/fused_mlp_int8.cu", "zonos_tpu/ops/pallas_matmul.py:250",
+              [k3["K3s"]], counts["fused_mlp_int8_split"]),
+    ]
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(f"card: {_card_line()}", flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                              "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,55 @@
+"""The port stands alone: it imports nothing of JAX or of the JAX package, and
+its entry points run on the card unless the caller asks for the CPU."""
+
+import os
+import subprocess
+import sys
+import textwrap
+
+import pytest
+import torch
+
+from zonos_tpu_torch.codec.dac import DACAutoencoder
+from zonos_tpu_torch.config import tiny_transformer_config
+from zonos_tpu_torch.models.zonos import Zonos
+from zonos_tpu_torch.runtime.generate import generate
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def test_port_and_chip_smoke_import_without_jax():
+    code = textwrap.dedent("""
+        import sys
+        sys.modules["jax"] = sys.modules["flax"] = sys.modules["zonos_tpu"] = None
+        import importlib, pkgutil
+        import zonos_tpu_torch
+        names = [m.name for m in pkgutil.walk_packages(zonos_tpu_torch.__path__, "zonos_tpu_torch.")]
+        for name in names:
+            importlib.import_module(name)
+        import chip_smoke
+        assert callable(chip_smoke.main)
+        print(len(names), "modules")
+    """)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.split()[0]) >= 15
+
+
+@pytest.mark.parametrize("entry", ["zonos", "dac", "generate"])
+def test_entry_points_default_to_cuda(monkeypatch, entry):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        if entry == "zonos":
+            Zonos.from_config(tiny_transformer_config())
+        elif entry == "dac":
+            DACAutoencoder()
+        else:
+            generate({}, tiny_transformer_config(), torch.zeros(2, 4, 64))
+
+
+def test_chip_smoke_fails_without_a_card():
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=REPO, env=env, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout

@@ -1,0 +1,85 @@
+"""Turn the JAX package's params into the port's.
+
+The input is a nested dict of numpy arrays (e.g. ``jax.tree.map(np.asarray,
+params)``); the output holds torch tensors on one device. Layouts are kept:
+layer-stacked ``[L, ...]`` leaves and ``{"q", "s"}`` int8 dicts pass through
+unchanged. Only the DAC's convolution weights change layout, to PyTorch's.
+This module imports no JAX.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def _tensor(a, device, dtype, key: str | None) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.kind in "iub":
+        return torch.from_numpy(np.array(a, copy=True)).to(device)
+    # numpy has no bf16: widen first (exact); quant scales ("s") stay f32.
+    t = torch.from_numpy(np.array(a, dtype=np.float32, copy=True))
+    return t.to(device=device, dtype=torch.float32 if key == "s" else dtype)
+
+
+def params_from_jax(tree, device="cpu", dtype=torch.float32, _key: str | None = None):
+    """Nested dict/list of numpy arrays → the same structure of torch tensors.
+
+    Integer leaves (int8 weights) keep their dtype, the f32 scales of int8
+    dicts stay f32, and every other float leaf becomes ``dtype``.
+    """
+    if isinstance(tree, dict):
+        return {k: params_from_jax(v, device, dtype, k) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [params_from_jax(v, device, dtype, _key) for v in tree]
+    return _tensor(tree, device, dtype, _key)
+
+
+def _conv(p: dict, device, dtype) -> dict:
+    """JAX conv {"w": [K, Cin, Cout], "b"} → PyTorch's [Cout, Cin, K]."""
+    w = np.asarray(p["w"], np.float32).transpose(2, 1, 0)
+    return {"w": _tensor(w, device, dtype, "w"), "b": _tensor(p["b"], device, dtype, "b")}
+
+
+def _conv_t(p: dict, device, dtype) -> dict:
+    """JAX conv-transpose {"w": [K, Cin, Cout], K flipped} → PyTorch's [Cin, Cout, K].
+
+    The JAX package stores the transposed-conv taps flipped along K (it runs
+    them as an input-dilated forward convolution), so K is un-flipped here.
+    """
+    w = np.asarray(p["w"], np.float32)[::-1].transpose(1, 2, 0)
+    return {"w": _tensor(w, device, dtype, "w"), "b": _tensor(p["b"], device, dtype, "b")}
+
+
+def _res(p: dict, device, dtype) -> dict:
+    return {
+        "snake1": _tensor(p["snake1"], device, dtype, None),
+        "conv1": _conv(p["conv1"], device, dtype),
+        "snake2": _tensor(p["snake2"], device, dtype, None),
+        "conv2": _conv(p["conv2"], device, dtype),
+    }
+
+
+def dac_params_from_jax(tree: dict, device="cpu", dtype=torch.float32) -> dict:
+    """JAX DAC params (``init_dac_params`` layout) → the port's decoder + quantizer.
+
+    The encoder and the quantizer's input projections are not ported yet and
+    are dropped.
+    """
+    dec = tree["decoder"]
+    decoder = {
+        "conv1": _conv(dec["conv1"], device, dtype),
+        "blocks": [
+            {
+                "snake1": _tensor(blk["snake1"], device, dtype, None),
+                "conv_t": _conv_t(blk["conv_t"], device, dtype),
+                "res": [_res(r, device, dtype) for r in blk["res"]],
+            }
+            for blk in dec["blocks"]
+        ],
+        "snake_out": _tensor(dec["snake_out"], device, dtype, None),
+        "conv2": _conv(dec["conv2"], device, dtype),
+    }
+    q = tree["quantizer"]
+    quantizer = {k: _tensor(q[k], device, dtype, k) for k in ("codebooks", "out_proj_w", "out_proj_b")}
+    return {"decoder": decoder, "quantizer": quantizer}

@@ -1,0 +1,207 @@
+"""Int8 decode matmul kernels K1 and K3 (port of ``zonos_tpu/ops/pallas_matmul.py``).
+
+* K1 ``int8_matmul`` (``csrc/int8_matmul.cu``) replaces the Pallas
+  ``int8_matmul``: y = x @ wq * s for 1-16 rows.
+* K3 ``fused_mlp_int8`` / ``fused_mlp_int8_split`` (``csrc/fused_mlp_int8.cu``)
+  replace the Pallas ``fused_mlp_int8`` / ``fused_mlp_int8_split``: the
+  gated-SiLU MLP with int8 weights.
+
+Each wrapper takes its plain PyTorch version for tensors on the CPU, and only
+there; for CUDA tensors it launches the kernel or raises. ``launches`` on each
+wrapper counts kernel launches. The plain versions compute in the activation
+dtype's values with f32 sums: at float32 they equal the JAX package's XLA
+path, and at bf16 they repeat the kernels' arithmetic (exact int8 x bf16
+products, f32 sums, h rounded to bf16 before fc2).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from zonos_tpu_torch.ops import _build
+
+MAX_ROWS = 16  # K1/K3 take decode-sized row counts; larger batches use torch.matmul
+_COLS_PER_BLOCK = 256  # GEMV_COLS in csrc/gemv_int8.cuh
+_ROWS_PER_THREAD_STEP = 16  # GEMV_TY
+_TARGET_BLOCKS = 2 * 132  # two blocks per H100 SM
+
+
+def _split_k(k: int, n: int, b: int, nmat: int = 1) -> tuple[int, int]:
+    """(rows per K chunk, number of chunks) so the grid has about _TARGET_BLOCKS blocks."""
+    rows_per_pass = 1 if b == 1 else (2 if b == 2 else 4)
+    tiles = math.ceil(n / _COLS_PER_BLOCK) * nmat * math.ceil(b / rows_per_pass)
+    splits = max(1, min(math.ceil(_TARGET_BLOCKS / tiles), k // 64))
+    kchunk = math.ceil(math.ceil(k / splits) / _ROWS_PER_THREAD_STEP) * _ROWS_PER_THREAD_STEP
+    return kchunk, math.ceil(k / kchunk)
+
+
+def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def _stream() -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+
+def _require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(msg)
+
+
+def _check_x(x: torch.Tensor, k: int, name: str) -> None:
+    _require(x.is_cuda and x.dtype == torch.bfloat16, f"{name}: x must be a CUDA bf16 tensor, got {x.dtype} on {x.device}")
+    _require(x.dim() == 2 and x.shape[1] == k and x.is_contiguous(), f"{name}: x must be contiguous [B, {k}], got {tuple(x.shape)}")
+    _require(1 <= x.shape[0] <= MAX_ROWS, f"{name}: 1 <= B <= {MAX_ROWS} rows, got {x.shape[0]}")
+
+
+def _check_w(w: torch.Tensor, shape: tuple[int, int], name: str) -> None:
+    _require(w.is_cuda and w.dtype == torch.int8, f"{name}: weight must be a CUDA int8 tensor")
+    _require(tuple(w.shape) == shape, f"{name}: weight shape {tuple(w.shape)} != {shape}")
+    _require(w.is_contiguous(), f"{name}: weight must be contiguous row-major")
+
+
+def _check_s(s: torch.Tensor, n: int, name: str) -> torch.Tensor:
+    _require(s.is_cuda and s.dtype == torch.float32 and s.numel() == n and s.is_contiguous(),
+             f"{name}: scale must be a contiguous CUDA f32 tensor of {n} elements")
+    return s
+
+
+# ---------------------------------------------------------------------------
+# K1: int8 GEMV
+# ---------------------------------------------------------------------------
+
+def _mm_f32(x: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
+    # int8 and bf16 values are exact in f32: exact products, f32 sums.
+    return torch.matmul(x.float(), wq.float())
+
+
+def int8_matmul_plain(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """y[b, n] = (sum_k x[b,k] * wq[k,n]) * scale[n] → [B, N] f32."""
+    return _mm_f32(x, wq) * scale.reshape(1, -1).float()
+
+
+def int8_matmul(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """x [B, K] · wq [K, N] int8 · scale [N] or [1, N] f32 → [B, N] f32."""
+    if x.device.type == "cpu":
+        return int8_matmul_plain(x, wq, scale)
+    b, k = x.shape
+    n = wq.shape[1]
+    _check_x(x, k, "int8_matmul")
+    _check_w(wq, (k, n), "int8_matmul")
+    _check_s(scale, n, "int8_matmul")
+    kchunk, splits = _split_k(k, n, b)
+    partial = torch.empty((splits, b, n), dtype=torch.float32, device=x.device)
+    y = torch.empty((b, n), dtype=torch.float32, device=x.device)
+    lib = _lib()
+    err = lib.zt_int8_matmul(_ptr(x), _ptr(wq), _ptr(scale), _ptr(partial), _ptr(y),
+                             b, k, n, kchunk, splits, _stream())
+    _build.check(err, "int8_matmul")
+    int8_matmul.launches += 1
+    return y
+
+
+int8_matmul.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K3: gated-SiLU MLP
+# ---------------------------------------------------------------------------
+
+def _mlp_plain(x, w1y, s1y, w1g, s1g, w2q, s2):
+    y = _mm_f32(x, w1y) * s1y.reshape(1, -1).float()
+    g = _mm_f32(x, w1g) * s1g.reshape(1, -1).float()
+    h = (y * (g * torch.sigmoid(g))).to(x.dtype)  # bf16 before fc2 when x is bf16
+    return _mm_f32(h, w2q) * s2.reshape(1, -1).float()
+
+
+def fused_mlp_int8_plain(x, w1q, s1, w2q, s2):
+    f = w1q.shape[1] // 2
+    s1 = s1.reshape(-1)
+    return _mlp_plain(x, w1q[:, :f], s1[:f], w1q[:, f:], s1[f:], w2q, s2)
+
+
+def fused_mlp_int8_split_plain(x, w1yq, s1y, w1gq, s1g, w2q, s2):
+    return _mlp_plain(x, w1yq, s1y, w1gq, s1g, w2q, s2)
+
+
+def _launch_mlp(x, w1y, w1g, ld1, s1y, s1g, w2q, s2, f):
+    b, d = x.shape
+    d_out = w2q.shape[1]
+    _check_w(w2q, (f, d_out), "fused_mlp_int8")
+    _check_s(s2, d_out, "fused_mlp_int8")
+    kchunk1, splits1 = _split_k(d, f, b, nmat=2)
+    kchunk2, splits2 = _split_k(f, d_out, b)
+    dev = x.device
+    part1 = torch.empty((2, splits1, b, f), dtype=torch.float32, device=dev)
+    h = torch.empty((b, f), dtype=torch.bfloat16, device=dev)
+    part2 = torch.empty((splits2, b, d_out), dtype=torch.float32, device=dev)
+    y = torch.empty((b, d_out), dtype=torch.float32, device=dev)
+    err = _lib_mlp().zt_fused_mlp_int8(
+        _ptr(x), _ptr(w1y), _ptr(w1g), ld1, _ptr(s1y), _ptr(s1g), _ptr(w2q), _ptr(s2),
+        _ptr(part1), _ptr(h), _ptr(part2), _ptr(y), b, d, f, d_out,
+        kchunk1, splits1, kchunk2, splits2, _stream(),
+    )
+    _build.check(err, "fused_mlp_int8")
+    return y
+
+
+def fused_mlp_int8(x, w1q, s1, w2q, s2):
+    """x [B, D] bf16; w1q [D, 2F] int8 (y = cols [0, F), gate = [F, 2F)); s1 [2F];
+    w2q [F, Dout] int8; s2 [Dout] → [B, Dout] f32."""
+    if x.device.type == "cpu":
+        return fused_mlp_int8_plain(x, w1q, s1, w2q, s2)
+    b, d = x.shape
+    f = w1q.shape[1] // 2
+    _check_x(x, d, "fused_mlp_int8")
+    _check_w(w1q, (d, 2 * f), "fused_mlp_int8")
+    s1 = _check_s(s1, 2 * f, "fused_mlp_int8").reshape(-1)
+    y = _launch_mlp(x, w1q, w1q[:, f:], 2 * f, s1, s1[f:], w2q, s2, f)
+    fused_mlp_int8.launches += 1
+    return y
+
+
+fused_mlp_int8.launches = 0
+
+
+def fused_mlp_int8_split(x, w1yq, s1y, w1gq, s1g, w2q, s2):
+    """fused_mlp_int8 with the y and gate projections as separate [D, F] arrays."""
+    if x.device.type == "cpu":
+        return fused_mlp_int8_split_plain(x, w1yq, s1y, w1gq, s1g, w2q, s2)
+    b, d = x.shape
+    f = w1yq.shape[1]
+    _check_x(x, d, "fused_mlp_int8_split")
+    _check_w(w1yq, (d, f), "fused_mlp_int8_split")
+    _check_w(w1gq, (d, f), "fused_mlp_int8_split")
+    _check_s(s1y, f, "fused_mlp_int8_split")
+    _check_s(s1g, f, "fused_mlp_int8_split")
+    y = _launch_mlp(x, w1yq, w1gq, f, s1y, s1g, w2q, s2, f)
+    fused_mlp_int8_split.launches += 1
+    return y
+
+
+fused_mlp_int8_split.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Library binding (built at first use, never at import)
+# ---------------------------------------------------------------------------
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("int8_matmul")
+    lib.zt_int8_matmul.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
+    lib.zt_int8_matmul.restype = _I
+    return lib
+
+
+def _lib_mlp() -> ctypes.CDLL:
+    lib = _build.load("fused_mlp_int8")
+    lib.zt_fused_mlp_int8.argtypes = [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+                                      _I, _I, _I, _I, _I, _I, _I, _I, _P]
+    lib.zt_fused_mlp_int8.restype = _I
+    return lib

@@ -1,0 +1,32 @@
+"""Rotary position embeddings, paired-dims convention (port of ``zonos_tpu/ops/rope.py``).
+
+Dimensions rotate as consecutive (even, odd) pairs: x is viewed as
+``[..., head_dim // 2, 2]``, not the rotate-half convention.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def rope_rows(positions: torch.Tensor, n_elem: int, base: float = 10000.0) -> torch.Tensor:
+    """Cos/sin rows for integer positions [...] → [..., n_elem // 2, 2] (f32)."""
+    exps = torch.arange(0, n_elem, 2, dtype=torch.float32, device=positions.device)[: n_elem // 2] / n_elem
+    freqs = 1.0 / (base ** exps)
+    angles = positions.float()[..., None] * freqs
+    return torch.stack([torch.cos(angles), torch.sin(angles)], dim=-1)
+
+
+def apply_rope(x: torch.Tensor, freqs: torch.Tensor) -> torch.Tensor:
+    """Rotate x [B, S, H, Dh] by freqs [S, Dh//2, 2] or [B, S, Dh//2, 2]; math in f32."""
+    b, s, h, dh = x.shape
+    xf = x.float().reshape(b, s, h, dh // 2, 2)
+    if freqs.dim() == 3:
+        fc = freqs[None, :, None, :, 0]
+        fs = freqs[None, :, None, :, 1]
+    else:
+        fc = freqs[:, :, None, :, 0]
+        fs = freqs[:, :, None, :, 1]
+    x0, x1 = xf[..., 0], xf[..., 1]
+    out = torch.stack([x0 * fc - x1 * fs, x1 * fc + x0 * fs], dim=-1)
+    return out.reshape(b, s, h, dh).to(x.dtype)
