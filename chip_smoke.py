@@ -5,20 +5,27 @@
 
 Phases; any failure exits non-zero:
   0. the card: name and power limit (nvidia-smi), TF32 off for every f32 compare;
-  1. build every CUDA kernel from zonos_tpu_torch/csrc (one nvcc per source, in parallel);
+  1. build every CUDA kernel from zonos_tpu_torch/csrc (one nvcc per source, in
+     parallel) and, beside them, the native G2P library (g++);
   2. each kernel against its plain PyTorch version on the card at the main
      path's shapes, with times (CUDA events, median of 50 after warm-up, L2
      flushed before each launch), the least time the card could take, and a
      PyTorch library call of the same function as a yardstick;
-  3. a 2-layer model at full width (d 2048), int8, on the card in bf16 with
-     the kernels against the same weights on the CPU in f32 with the plain
-     versions: prefill + 8 teacher-forced decode steps, logits compared, and
-     a short DAC decode compared the same way;
+  3. a 2-layer model at full width (d 2048), int8 and then int4, on the card
+     in bf16 with the kernels against the same weights on the CPU in f32 with
+     the plain versions: prefill + 8 teacher-forced decode steps, logits
+     compared, and a short DAC decode compared the same way;
   4. the main path: the flagship transformer (24 layers), int8 weights and KV,
      860 frames (10 s) at cfg 2.0 and min-p 0.1, then the full-size DAC to
      int16 PCM; run twice, the second run timed with every kernel's launch
      count set to 0 before it and checked after it;
-  5. a 32-frame generate under torch.profiler: device time per decode step
+  5. the facade path on int4 weights: English text and a speaker vector through
+     make_cond_dict, prepare_conditioning (cfg 2.0) and generate_audio (the DAC
+     of settled spans interleaved with the decode loop) to 430 frames of int16
+     PCM; a warm-up run, then a run with every launch count set to 0 before it
+     and checked after it; the phonemes must come from the native G2P engine;
+     at greedy, generate_audio against generate + a whole-request DAC decode;
+  6. a 32-frame generate under torch.profiler: device time per decode step
      against the step's wall time from phase 4, and the top kernels.
 Prints one line per kernel check, a ``{"kernels": [...]}`` line, the card's
 name and power limit, and last ``{"ok": true, "device": {...}}``.
@@ -30,6 +37,7 @@ import dataclasses
 import json
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -215,13 +223,46 @@ def _k3_cases(gen, flush):
     return rows
 
 
+def _k4_cases(gen, flush):
+    from zonos_tpu_torch.ops import cuda_matmul as M
+    from zonos_tpu_torch.ops.quant import quantize_int4
+
+    rows = []
+    # in_proj, out_proj, fc1 and fc2 of a flagship layer at the decode batch,
+    # and in_proj at the largest batch K4 takes
+    for b, k, n in ((2, 2048, 3072), (2, 2048, 2048), (2, 2048, 16384), (2, 8192, 2048), (16, 2048, 3072)):
+        x = torch.randn((b, k), generator=gen, device="cuda").to(torch.bfloat16)
+        w = quantize_int4(torch.randn((k, n), generator=gen, device="cuda") / k ** 0.5)
+        y = M.int4_matmul(x, w["q4"], w["s4"])
+        ref = M.int4_matmul_plain(x, w["q4"], w["s4"])
+        torch.cuda.synchronize()
+        err = (y - ref).abs()
+        # Same exact products (bf16 x int4 in f32) and per-group scaling, only
+        # the order of the f32 sums differs: K1's bar.
+        tol = 1e-3 * ref.abs() + 1e-3 * ref.abs().max()
+        if not bool((err <= tol).all()) or not torch.isfinite(y).all():
+            _fail(f"K4 int4_matmul B={b} {k}->{n}: max err {err.max().item():.3e}")
+        g = w["s4"].shape[0]
+        w_bf16 = (M.unpack_nibbles(w["q4"], torch.float32) * w["s4"]).reshape(k, n).to(torch.bfloat16)
+        row = {
+            "case": f"B={b} {k}->{n}", "max_abs_err": err.max().item(),
+            "ms": _time_ms(lambda: M.int4_matmul(x, w["q4"], w["s4"]), flush),
+            "plain_ms": _time_ms(lambda: M.int4_matmul_plain(x, w["q4"], w["s4"]), flush),
+            # yardstick: a bf16 matmul against the pre-dequantized weight (4x the weight bytes)
+            "library_ms": _time_ms(lambda: torch.matmul(x, w_bf16), flush),
+        }
+        row["bound_ms"], row["bound_by"] = _bound_ms(k * n // 2 + g * n * 4 + b * k * 2 + b * n * 4, 2 * b * k * n)
+        rows.append(row)
+        print("K4", json.dumps(row), flush=True)
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # Phase 3: two full-width layers, card (bf16, kernels) vs CPU (f32, plain)
 # ---------------------------------------------------------------------------
 
-def _phase_small_model():
+def _phase_small_model(bits: int):
     from zonos_tpu_torch.bridge import params_from_jax
-    from zonos_tpu_torch.codec.dac import DACAutoencoder
     from zonos_tpu_torch.config import zonos_v01_transformer_config
     from zonos_tpu_torch.models.backbone import backbone_forward, create_cache
     from zonos_tpu_torch.models.zonos import Zonos
@@ -230,7 +271,7 @@ def _phase_small_model():
 
     full = zonos_v01_transformer_config()
     cfg = dataclasses.replace(full, backbone=dataclasses.replace(full.backbone, n_layer=2, attn_layer_idx=(0, 1)))
-    cpu = Zonos.from_config(cfg, seed=1, dtype=torch.float32, device="cpu").quantize()
+    cpu = Zonos.from_config(cfg, seed=1, dtype=torch.float32, device="cpu").quantize(bits=bits)
     card_params = params_from_jax(_to_numpy(cpu.params), device="cuda", dtype=torch.bfloat16)
     statics = GenerateStatics(cfg=cfg, sampling=SamplingParams(temperature=0.0), prefill_len=128,
                               delayed_len=1024, cache_len=1152, batch_size=1, kv_int8=True)
@@ -257,10 +298,16 @@ def _phase_small_model():
             lg_cpu, _ = _decode_logits(cpu.params, statics, frame, cache_cpu, 128 + t, pad_cpu, 2.0)
             lg_gpu, _ = _decode_logits(card_params, statics, frame.cuda(), cache_gpu, 128 + t, pad_gpu, 2.0)
             corrs.append(_corr(lg_gpu, lg_cpu))
-    print("phase3 logits corr (prefill, 8 decode steps):", json.dumps([round(c, 6) for c in corrs]), flush=True)
+    print(f"phase3 int{bits} logits corr (prefill, 8 decode steps):", json.dumps([round(c, 6) for c in corrs]),
+          flush=True)
     # bf16 activations and KV on the card against f32 on the CPU: corr > 0.999
     if min(corrs) <= 0.999:
-        _fail(f"phase 3: 2-layer card/CPU logits correlation {min(corrs):.6f} <= 0.999")
+        _fail(f"phase 3: 2-layer int{bits} card/CPU logits correlation {min(corrs):.6f} <= 0.999")
+
+
+def _phase_small_dac():
+    from zonos_tpu_torch.bridge import params_from_jax
+    from zonos_tpu_torch.codec.dac import DACAutoencoder
 
     dac_gpu = DACAutoencoder(dtype=torch.bfloat16, frame_bucket=16, device="cuda", seed=3)
     dac_cpu = DACAutoencoder(params=params_from_jax(_to_numpy(dac_gpu.params), device="cpu"),
@@ -315,7 +362,7 @@ def _phase_main_path(card: str):
 
     with torch.no_grad():
         run(1)  # warm-up: kernel libraries loaded, cuDNN plans picked
-        kernels = (M.int8_matmul, A.attn_core_int8, M.fused_mlp_int8, M.fused_mlp_int8_split)
+        kernels = (M.int8_matmul, A.attn_core_int8, M.fused_mlp_int8, M.fused_mlp_int8_split, M.int4_matmul)
         for k in kernels:
             k.launches = 0
         codes, pcm, stats, t_gen, t_dac = run(2)
@@ -325,7 +372,7 @@ def _phase_main_path(card: str):
     # per decode step: in_proj + out_proj per layer and the output heads on K1,
     # one K2 and one K3 per layer; the prefill's last-position heads on K1.
     expected = {"int8_matmul": steps * (2 * L + 1) + 1, "attn_core_int8": steps * L,
-                "fused_mlp_int8": steps * L, "fused_mlp_int8_split": 0}
+                "fused_mlp_int8": steps * L, "fused_mlp_int8_split": 0, "int4_matmul": 0}
     print("phase4 launches:", json.dumps(counts), "expected:", json.dumps(expected), flush=True)
     if counts != expected:
         _fail(f"phase 4: launch counts {counts} != expected {expected}")
@@ -345,6 +392,125 @@ def _phase_main_path(card: str):
     print("phase4 main path:", json.dumps(result), flush=True)
     return counts, model, cond, result
 
+
+# ---------------------------------------------------------------------------
+# Phase 5: the facade path on int4 weights, text to PCM
+# ---------------------------------------------------------------------------
+
+FACADE_TEXT = ("The quick brown fox jumps over the lazy dog near the riverbank, "
+               "while 3 children count the boats drifting slowly past the old mill.")
+FACADE_FRAMES = 430  # 5 s of audio at 86 frames per second
+
+
+def _phase_facade_int4(card: str):
+    from zonos_tpu_torch.conditioning import espeak, native_g2p
+    from zonos_tpu_torch.conditioning.cond_dict import make_cond_dict
+    from zonos_tpu_torch.conditioning.text import clean
+    from zonos_tpu_torch.config import zonos_v01_transformer_config
+    from zonos_tpu_torch.models.zonos import Zonos
+    from zonos_tpu_torch.ops import cuda_attention as A
+    from zonos_tpu_torch.ops import cuda_matmul as M
+    from zonos_tpu_torch.ops.sampling import SamplingParams
+
+    # The phonemes must come from the native rule engine: not from the
+    # grapheme fallback, and not from a system eSpeak.
+    fallbacks = []
+    warn = espeak._warn_grapheme_fallback
+    espeak._warn_grapheme_fallback = lambda lang: (fallbacks.append(lang), warn(lang))
+    phonemes = espeak.phonemize([FACADE_TEXT], ["en-us"])[0]
+    native = native_g2p.phonemize(clean([FACADE_TEXT], ["en-us"])[0], "en-us")
+    print("phase5 phonemes:", json.dumps(phonemes, ensure_ascii=False), flush=True)
+    if fallbacks or native is None or phonemes != native:
+        _fail(f"phase 5: phonemes did not come from the native G2P engine (fallback for {fallbacks})")
+
+    cfg = zonos_v01_transformer_config()
+    L = cfg.backbone.n_layer
+    t0 = time.perf_counter()
+    model = Zonos.from_config(cfg, seed=0, dtype=torch.bfloat16, device="cuda").quantize(bits=4)
+    torch.cuda.synchronize()
+    print(f"phase5 model init + int4 quantize: {time.perf_counter() - t0:.1f} s", flush=True)
+    speaker = np.random.default_rng(4).normal(size=(1, 1, 128)).astype(np.float32)
+    cd = make_cond_dict(text=FACADE_TEXT, language="en-us", speaker=speaker)
+
+    def conditioning():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        cond = model.prepare_conditioning(cd, cfg_scale=2.0)
+        torch.cuda.synchronize()
+        return cond, time.perf_counter() - t
+
+    def run(seed, sampling):
+        stats = {}
+        t = time.perf_counter()
+        wav, lengths = model.generate_audio(cond, max_new_tokens=FACADE_FRAMES, cfg_scale=2.0,
+                                            sampling_params=sampling, seed=seed, forbid_eos=True,
+                                            pcm_int16=True, stats=stats)
+        return wav, lengths, stats, time.perf_counter() - t
+
+    kernels = (M.int4_matmul, M.int8_matmul, A.attn_core_int8, M.fused_mlp_int8, M.fused_mlp_int8_split)
+    with torch.no_grad():
+        cond, _ = conditioning()
+        run(1, SamplingParams(min_p=0.1))  # warm-up
+        cond, t_cond = conditioning()
+        torch.cuda.reset_peak_memory_stats()
+        for k in kernels:
+            k.launches = 0
+        wav, lengths, stats, t_total = run(2, SamplingParams(min_p=0.1))
+        counts = {k.__name__: k.launches for k in kernels}
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+        # Greedy: the pipelined path against generate + a whole-request DAC decode.
+        greedy = SamplingParams(temperature=0.0)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        codes, seq_lengths = model.generate(cond, max_new_tokens=FACADE_FRAMES, cfg_scale=2.0, sampling_params=greedy,
+                                            seed=0, forbid_eos=True, return_lengths=True)
+        t_gen = time.perf_counter() - t
+        model.autoencoder.decode_device(codes, to_int16=True).cpu()  # first call at this shape: cuDNN set-up
+        t = time.perf_counter()
+        pcm_seq = model.autoencoder.decode_device(codes, to_int16=True).cpu().numpy()
+        t_dac = time.perf_counter() - t
+        pcm_pipe, pipe_lengths, _, _ = run(0, greedy)
+
+    steps = stats["decode_steps"]
+    # per decode step: the four int4 projections of every layer on K4, the
+    # int8 heads on K1, one K2 per layer; the prefill's last-position heads on K1.
+    expected = {"int4_matmul": steps * 4 * L, "int8_matmul": steps + 1, "attn_core_int8": steps * L,
+                "fused_mlp_int8": 0, "fused_mlp_int8_split": 0}
+    print("phase5 launches:", json.dumps(counts), "expected:", json.dumps(expected), flush=True)
+    if counts != expected:
+        _fail(f"phase 5: launch counts {counts} != expected {expected}")
+    hop, sr = model.autoencoder.config.hop_length, model.autoencoder.sampling_rate
+    if wav.shape != (1, FACADE_FRAMES * hop) or wav.dtype != np.int16 or list(lengths) != [FACADE_FRAMES]:
+        _fail(f"phase 5: PCM shape {wav.shape} dtype {wav.dtype} lengths {lengths}")
+    rms = float(np.sqrt(np.mean(wav.astype(np.float64) ** 2)))
+
+    if list(pipe_lengths) != list(seq_lengths) or pcm_pipe.shape != pcm_seq.shape:
+        _fail(f"phase 5: greedy lengths {pipe_lengths} vs {seq_lengths}, shapes {pcm_pipe.shape} vs {pcm_seq.shape}")
+    diff = np.abs(pcm_pipe.astype(np.int32) - pcm_seq.astype(np.int32))
+    corr = _corr(torch.as_tensor(pcm_pipe), torch.as_tensor(pcm_seq))
+    greedy_cmp = {"max_lsb": int(diff.max()), "equal_share": float((diff == 0).mean()), "corr": corr}
+    print("phase5 greedy generate_audio vs generate + decode:", json.dumps(greedy_cmp), flush=True)
+    # bf16 convolutions summed in another order for another piece shape
+    if greedy_cmp["max_lsb"] > 4 and corr <= 0.9999:
+        _fail(f"phase 5: pipelined and sequential greedy PCM differ: {greedy_cmp}")
+
+    audio_s = FACADE_FRAMES * hop / sr
+    result = {
+        "card": card, "frames": FACADE_FRAMES, "audio_s": audio_s, "decode_steps": steps,
+        "conditioning_ms": t_cond * 1e3, "prefill_ms": stats["prefill_s"] * 1e3,
+        "decode_ms_per_frame": stats["segments_s"] * 1e3 / steps, "dac_host_ms": stats["dac_s"] * 1e3,
+        "generate_audio_s": t_total, "rtf": audio_s / t_total, "rtf_with_conditioning": audio_s / (t_total + t_cond),
+        "sequential_generate_s": t_gen, "sequential_dac_ms": t_dac * 1e3,
+        "sequential_rtf": audio_s / (t_gen + t_dac), "pcm_rms": rms, "peak_mem_gb": peak_gb,
+    }
+    print("phase5 facade int4 path:", json.dumps(result), flush=True)
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: the profiler, last
+# ---------------------------------------------------------------------------
 
 def _phase_profile(model, cond, result):
     """Device time of a short generate under torch.profiler: the busy share of
@@ -366,12 +532,12 @@ def _phase_profile(model, cond, result):
     kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
     device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     if device_ms == 0:
-        print("phase5 profile: device time not measured (the profiler saw no kernels)", flush=True)
+        print("phase6 profile: device time not measured (the profiler saw no kernels)", flush=True)
         return
     steps = stats["decode_steps"]
     per_step = device_ms / (steps + 1)  # the prefill counted as one more step
     top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:10]
-    print("phase5 profile:", json.dumps({
+    print("phase6 profile:", json.dumps({
         "generate_frames": 32, "decode_steps": steps, "device_ms_total": device_ms,
         "kernel_launches": sum(e.count for e in kernels),
         "device_ms_per_step": per_step,
@@ -393,9 +559,16 @@ def main() -> int:
     print(json.dumps({"torch": torch.__version__, "cuda": torch.version.cuda,
                       "python": sys.version.split()[0]}), flush=True)
 
+    from zonos_tpu_torch.conditioning import native_g2p
+
     t = time.perf_counter()
+    g2p = threading.Thread(target=native_g2p.available)  # g++ beside the nvcc builds
+    g2p.start()
     logs = _build.build_all()
-    print(f"phase1 build: {time.perf_counter() - t:.1f} s", flush=True)
+    g2p.join()
+    if not native_g2p.available():
+        _fail("phase 1: the native G2P library did not build")
+    print(f"phase1 build (kernels + G2P library): {time.perf_counter() - t:.1f} s", flush=True)
     for name, log in logs.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
@@ -407,10 +580,15 @@ def main() -> int:
     k1 = _k1_cases(gen, flush)
     k2 = _k2_cases(gen, flush)
     k3 = dict(_k3_cases(gen, flush))
+    k4 = _k4_cases(gen, flush)
     del flush
 
-    _phase_small_model()
+    _phase_small_model(bits=8)
+    _phase_small_model(bits=4)
+    _phase_small_dac()
     counts, model, cond, result = _phase_main_path(card)
+    facade_counts = _phase_facade_int4(card)
+    # last: once torch.profiler has run, host cost per op stays raised in the process
     _phase_profile(model, cond, result)
     del model
 
@@ -432,6 +610,8 @@ def main() -> int:
               [k3["K3"]], counts["fused_mlp_int8"]),
         entry("fused_mlp_int8_split", "zonos_tpu_torch/csrc/fused_mlp_int8.cu", "zonos_tpu/ops/pallas_matmul.py:250",
               [k3["K3s"]], counts["fused_mlp_int8_split"]),
+        entry("int4_matmul", "zonos_tpu_torch/csrc/int4_matmul.cu", "zonos_tpu/ops/pallas_matmul.py:120",
+              k4, facade_counts["int4_matmul"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"card: {_card_line()}", flush=True)

@@ -12,6 +12,7 @@ import torch
 from zonos_tpu_torch.codec.dac import DACAutoencoder
 from zonos_tpu_torch.config import tiny_transformer_config
 from zonos_tpu_torch.models.zonos import Zonos
+from zonos_tpu_torch.runtime import streaming
 from zonos_tpu_torch.runtime.generate import generate
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -35,16 +36,26 @@ def test_port_and_chip_smoke_import_without_jax():
     assert int(out.stdout.split()[0]) >= 15
 
 
-@pytest.mark.parametrize("entry", ["zonos", "dac", "generate"])
+@pytest.mark.parametrize("entry", ["zonos", "dac", "generate", "facade", "generate_audio", "stream"])
 def test_entry_points_default_to_cuda(monkeypatch, entry):
+    """Every entry point raises without a card unless the caller asks for the
+    CPU. The facade's methods (prepare_conditioning, generate, generate_audio,
+    stream) all run on the model's device, which its constructor resolves."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cond = torch.zeros(2, 4, 64)
     with pytest.raises(RuntimeError, match="CUDA"):
         if entry == "zonos":
             Zonos.from_config(tiny_transformer_config())
         elif entry == "dac":
             DACAutoencoder()
+        elif entry == "generate":
+            generate({}, tiny_transformer_config(), cond)
+        elif entry == "facade":
+            Zonos(tiny_transformer_config(), {})
+        elif entry == "generate_audio":
+            streaming.generate_audio({}, tiny_transformer_config(), cond, autoencoder=None)
         else:
-            generate({}, tiny_transformer_config(), torch.zeros(2, 4, 64))
+            next(streaming.generate_stream({}, tiny_transformer_config(), cond))
 
 
 def test_chip_smoke_fails_without_a_card():

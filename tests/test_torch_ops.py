@@ -98,9 +98,13 @@ def test_qeinsum_fp32(b, s, quantized):
     _close(TQ.qeinsum("bsd,de->bse", _t(x), tw), JQ.qeinsum("bsd,de->bse", jnp.asarray(x), jw))
 
 
-def test_int4_raises_with_roadmap_pointer():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TQ.quantize_transformer_params({"backbone": {"layers": {}}}, bits=4)
+@pytest.mark.parametrize("b,s", [(2, 1), (2, 9)])  # decode shape (K4's plain version) and prefill
+def test_qeinsum_int4_fp32(b, s):
+    rng = np.random.default_rng(6)
+    x = rng.normal(size=(b, s, 128)).astype(np.float32)
+    jw = JQ.quantize_int4(jnp.asarray(rng.normal(size=(128, 80)).astype(np.float32) / 8))
+    tw = {"q4": _t(jw["q4"]), "s4": _t(jw["s4"])}
+    _close(TQ.qeinsum("bsd,de->bse", _t(x), tw), JQ.qeinsum("bsd,de->bse", jnp.asarray(x), jw))
 
 
 def test_gqa_attention_causal_prefix():

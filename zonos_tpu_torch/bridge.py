@@ -3,8 +3,9 @@
 The input is a nested dict of numpy arrays (e.g. ``jax.tree.map(np.asarray,
 params)``); the output holds torch tensors on one device. Layouts are kept:
 layer-stacked ``[L, ...]`` leaves and ``{"q", "s"}`` int8 dicts pass through
-unchanged. Only the DAC's convolution weights change layout, to PyTorch's.
-This module imports no JAX.
+unchanged, and so do ``{"q4", "s4"}`` int4 dicts and the
+``prefix_conditioner`` subtree. Only the DAC's convolution weights change
+layout, to PyTorch's. This module imports no JAX.
 """
 
 from __future__ import annotations
@@ -12,21 +13,26 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+# Float leaves the JAX package keeps in f32 whatever the model dtype: the
+# int8 and int4 quant scales and the Fourier conditioners' projection.
+F32_KEYS = frozenset({"s", "s4", "fourier_weight"})
+
 
 def _tensor(a, device, dtype, key: str | None) -> torch.Tensor:
     a = np.asarray(a)
     if a.dtype.kind in "iub":
         return torch.from_numpy(np.array(a, copy=True)).to(device)
-    # numpy has no bf16: widen first (exact); quant scales ("s") stay f32.
+    # numpy has no bf16: widen first (exact); the F32_KEYS leaves stay f32.
     t = torch.from_numpy(np.array(a, dtype=np.float32, copy=True))
-    return t.to(device=device, dtype=torch.float32 if key == "s" else dtype)
+    return t.to(device=device, dtype=torch.float32 if key in F32_KEYS else dtype)
 
 
 def params_from_jax(tree, device="cpu", dtype=torch.float32, _key: str | None = None):
     """Nested dict/list of numpy arrays → the same structure of torch tensors.
 
-    Integer leaves (int8 weights) keep their dtype, the f32 scales of int8
-    dicts stay f32, and every other float leaf becomes ``dtype``.
+    Integer leaves (int8 weights, packed uint8 int4 weights) keep their
+    dtype, the leaves named in ``F32_KEYS`` stay f32, and every other float
+    leaf becomes ``dtype``.
     """
     if isinstance(tree, dict):
         return {k: params_from_jax(v, device, dtype, k) for k, v in tree.items()}

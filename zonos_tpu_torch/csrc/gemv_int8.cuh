@@ -1,5 +1,5 @@
 // Int8 weight-streaming GEMV body shared by K1 (int8_matmul.cu) and K3
-// (fused_mlp_int8.cu).
+// (fused_mlp_int8.cu); K4 (int4_matmul.cu) shares its layout and reduce pass.
 //
 // Computes partial sums of y[b, n] = sum_k x[b, k] * w[k, n] for a few rows b
 // (decode: the CFG-doubled batch), with x bf16 and w int8 row-major [K, N].
@@ -105,6 +105,7 @@ gemv_int8_partial(const __nv_bfloat16* __restrict__ x, int ldx,
 }
 
 // y[b, n] = scale[n] * sum over chunks of partial[chunk, b, n]  (f32 out).
+// A null scale leaves the sum unscaled (K4 scales each group inside its partials).
 __global__ void gemv_reduce(const float* __restrict__ partial, const float* __restrict__ scale,
                             float* __restrict__ y, int splits, int B, int N)
 {
@@ -112,7 +113,7 @@ __global__ void gemv_reduce(const float* __restrict__ partial, const float* __re
     if (idx >= B * N) return;
     float s = 0.f;
     for (int sp = 0; sp < splits; ++sp) s += partial[(size_t)sp * B * N + idx];
-    y[idx] = s * scale[idx % N];
+    y[idx] = scale ? s * scale[idx % N] : s;
 }
 
 inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }

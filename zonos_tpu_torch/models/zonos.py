@@ -1,22 +1,90 @@
-"""Top-level model handle (slim port of ``zonos_tpu/models/zonos.py``).
+"""Top-level model handle (port of ``zonos_tpu/models/zonos.py``).
 
 ``from_config`` builds a random-init model from a seed on a device,
-``quantize`` makes its decode matmuls int8 (and the KV cache int8 by
-default), ``generate`` turns conditioning embeddings into audio codes, and
-``autoencoder`` decodes codes to PCM. The conditioners and the text front
-end that make the conditioning are the next slice (ROADMAP.md).
+``quantize`` makes its decode matmuls int8 or int4 (and the KV cache int8 by
+default), ``prepare_conditioning`` turns a ``make_cond_dict`` dict into the
+CFG-doubled prefix embeddings, ``generate`` turns those into audio codes,
+``generate_audio`` into PCM with the DAC interleaved with the decode loop,
+and ``stream`` into PCM chunks as they are decoded.
 """
 
 from __future__ import annotations
 
+import hashlib
+import threading
+from typing import Any, Mapping
+
+import numpy as np
 import torch
 
 from zonos_tpu_torch import resolve_device
+from zonos_tpu_torch.conditioning.conditioners import (
+    init_prefix_conditioner_params,
+    prefix_conditioner_forward,
+    required_keys,
+)
 from zonos_tpu_torch.config import ZonosConfig
 from zonos_tpu_torch.models.backbone import init_backbone_params
 from zonos_tpu_torch.ops.quant import quantize_transformer_params
 from zonos_tpu_torch.ops.sampling import SamplingParams
 from zonos_tpu_torch.runtime import generate as genmod
+from zonos_tpu_torch.runtime import streaming
+
+
+class ConditioningCache:
+    """Thread-safe LRU cache of prepared conditioning.
+
+    Keyed on a SHA-512 over the cond/uncond dict contents and ``cfg_scale``
+    (the scale decides whether the unconditional half is present).
+    """
+
+    def __init__(self, max_size: int = 32):
+        self.max_size = max_size
+        self._cache: dict[str, Any] = {}
+        self._lock = threading.Lock()
+
+    @staticmethod
+    def make_key(cond_dict: Mapping, uncond_dict: Mapping | None, cfg_scale: float) -> str:
+        def enc(v) -> str:
+            if v is None:
+                return "None"
+            if isinstance(v, (int, float, str, bool)):
+                return str(v)
+            if isinstance(v, (list, tuple)):
+                return f"list_{[enc(x) for x in v]}"
+            if isinstance(v, torch.Tensor):
+                v = v.detach().float().cpu().numpy()
+            if hasattr(v, "__array__"):
+                a = np.asarray(v)
+                return f"arr_{a.shape}_{a.dtype}_{hashlib.sha512(a.tobytes()).hexdigest()}"
+            return f"other_{type(v).__name__}_{v}"
+
+        c = sorted((k, enc(v)) for k, v in cond_dict.items())
+        u = None if uncond_dict is None else sorted((k, enc(v)) for k, v in uncond_dict.items())
+        return hashlib.sha512(f"cfg:{cfg_scale}_cond:{c}_uncond:{u}".encode()).hexdigest()
+
+    def get(self, key: str):
+        with self._lock:
+            if key in self._cache:
+                val = self._cache.pop(key)
+                self._cache[key] = val
+                return val
+            return None
+
+    def put(self, key: str, value) -> None:
+        with self._lock:
+            self._cache.pop(key, None)
+            if len(self._cache) >= self.max_size:
+                del self._cache[next(iter(self._cache))]
+            self._cache[key] = value
+
+    def clear(self) -> None:
+        with self._lock:
+            self._cache.clear()
+
+    def size(self) -> int:
+        with self._lock:
+            return len(self._cache)
 
 
 class Zonos:
@@ -29,8 +97,9 @@ class Zonos:
         self.device = resolve_device(device)
         self.eos_token_id = config.eos_token_id
         self.masked_token_id = config.masked_token_id
+        self._conditioning_cache = ConditioningCache(max_size=32)
         self._autoencoder = None
-        self.default_kv_int8 = False  # quantize() turns it on: int8 weights + int8 KV
+        self.default_kv_int8 = False  # quantize() turns it on: quantized weights + int8 KV
 
     @classmethod
     def from_config(cls, config: ZonosConfig, seed: int = 0, dtype=torch.bfloat16, device=None) -> "Zonos":
@@ -46,15 +115,67 @@ class Zonos:
             "embeddings": emb.to(dtype),
             "heads": heads.to(dtype),
             "backbone": init_backbone_params(gen, config.backbone, dtype, device),
+            "prefix_conditioner": init_prefix_conditioner_params(gen, config.prefix_conditioner, d, dtype, device),
         }
         return cls(config, params, dtype, device)
 
     def quantize(self, bits: int = 8) -> "Zonos":
-        """Weight-only int8 of the backbone matmuls and heads; int8 KV by default."""
+        """Weight-only int8 (``bits=8``) or group-wise int4 (``bits=4``) of the
+        backbone matmuls, int8 heads; int8 KV by default afterwards."""
         m = Zonos(self.config, quantize_transformer_params(self.params, bits=bits), self.dtype, self.device)
         m._autoencoder = self._autoencoder
         m.default_kv_int8 = True
         return m
+
+    # ------------------------------------------------------------------
+    # Conditioning
+    # ------------------------------------------------------------------
+
+    @property
+    def required_cond_keys(self) -> set[str]:
+        return required_keys(self.config.prefix_conditioner)
+
+    @property
+    def conditioner_names(self) -> list[str]:
+        return [s.name for s in self.config.prefix_conditioner.conditioners]
+
+    def prepare_conditioning(
+        self,
+        cond_dict: Mapping[str, Any],
+        uncond_dict: Mapping[str, Any] | None = None,
+        use_cache: bool = False,
+        cfg_scale: float = 2.0,
+    ) -> torch.Tensor:
+        """[2B, Lc, D] prefix embeddings (cond ++ uncond) on the model's device.
+
+        The unconditional half defaults to the required keys of ``cond_dict``
+        only, so every optional conditioner takes its learned uncond vector.
+        With ``cfg_scale == 1.0`` only the conditional half is returned.
+        """
+        key = None
+        if use_cache:
+            key = ConditioningCache.make_key(cond_dict, uncond_dict, cfg_scale)
+            hit = self._conditioning_cache.get(key)
+            if hit is not None:
+                return hit
+
+        pcfg = self.config.prefix_conditioner
+        pparams = self.params["prefix_conditioner"]
+        with torch.no_grad():
+            result = prefix_conditioner_forward(pparams, pcfg, cond_dict, self.dtype, norm_eps=1e-5)
+            if cfg_scale != 1.0:
+                if uncond_dict is None:
+                    uncond_dict = {k: cond_dict[k] for k in self.required_cond_keys}
+                uncond = prefix_conditioner_forward(pparams, pcfg, uncond_dict, self.dtype, norm_eps=1e-5)
+                result = torch.cat([result, uncond], dim=0)
+
+        if key is not None:
+            self._conditioning_cache.put(key, result)
+        return result
+
+    # ------------------------------------------------------------------
+    # Generation
+    # ------------------------------------------------------------------
 
     def generate(
         self,
@@ -65,19 +186,88 @@ class Zonos:
         batch_size: int = 1,
         sampling_params: dict | SamplingParams | None = None,
         seed=None,
+        callback=None,
+        callback_interval: int = 64,
         kv_int8: bool | None = None,
         forbid_eos: bool = False,
         return_lengths: bool = False,
         stats: dict | None = None,
     ):
-        """Sanitized audio codes [B, 9, T] (numpy int32) from [2B, Lc, D] conditioning."""
-        return genmod.generate(
-            self.params, self.config, prefix_conditioning,
-            audio_prefix_codes=audio_prefix_codes, max_new_tokens=max_new_tokens,
-            cfg_scale=cfg_scale, batch_size=batch_size, sampling_params=sampling_params,
-            seed=seed, dtype=self.dtype, forbid_eos=forbid_eos,
-            kv_int8=self.default_kv_int8 if kv_int8 is None else kv_int8,
-            return_lengths=return_lengths, device=self.device, stats=stats,
+        """Sanitized audio codes [B, 9, T] (numpy int32) from [2B, Lc, D] conditioning.
+
+        With ``callback``, decoding runs in segments of ``callback_interval``
+        steps and ``callback(None, steps_done, max_steps)`` is called between
+        segments; returning False stops early and returns the codes so far.
+        """
+        kv_int8 = self.default_kv_int8 if kv_int8 is None else kv_int8
+        common = dict(
+            audio_prefix_codes=audio_prefix_codes, max_new_tokens=max_new_tokens, cfg_scale=cfg_scale,
+            batch_size=batch_size, sampling_params=sampling_params, seed=seed, dtype=self.dtype,
+            forbid_eos=forbid_eos, kv_int8=kv_int8, device=self.device,
+        )
+        if callback is None:
+            return genmod.generate(self.params, self.config, prefix_conditioning,
+                                   return_lengths=return_lengths, stats=stats, **common)
+        if return_lengths:
+            raise ValueError("return_lengths needs the callback-free path")
+        max_steps = max_new_tokens + self.config.codebook_dimension - 2
+        result = None
+        for item, _sr in streaming.generate_stream(
+            self.params, self.config, prefix_conditioning, autoencoder=None,
+            first_chunk_frames=callback_interval, chunk_frames=callback_interval,
+            on_progress=lambda steps: callback(None, steps, max_steps), **common,
+        ):
+            if item is not None:
+                result = item
+        if result is None:
+            result = np.zeros((batch_size, self.config.codebook_dimension, 0), np.int32)
+        return result
+
+    def generate_audio(
+        self,
+        prefix_conditioning,
+        audio_prefix_codes=None,
+        max_new_tokens: int = 86 * 30,
+        cfg_scale: float = 2.0,
+        batch_size: int = 1,
+        sampling_params=None,
+        seed=None,
+        kv_int8: bool | None = None,
+        forbid_eos: bool = False,
+        pcm_int16: bool = False,
+        stats: dict | None = None,
+    ):
+        """Full request → (wav [B, Lmax * hop], lengths [B]), the DAC interleaved
+        with the decode loop (``runtime.streaming.generate_audio``): float32
+        PCM, or int16 quantized on the device with ``pcm_int16``."""
+        return streaming.generate_audio(
+            self.params, self.config, prefix_conditioning, autoencoder=self.autoencoder,
+            audio_prefix_codes=audio_prefix_codes, max_new_tokens=max_new_tokens, cfg_scale=cfg_scale,
+            batch_size=batch_size, sampling_params=sampling_params, seed=seed, dtype=self.dtype,
+            forbid_eos=forbid_eos, kv_int8=self.default_kv_int8 if kv_int8 is None else kv_int8,
+            pcm_int16=pcm_int16, device=self.device, stats=stats,
+        )
+
+    def stream(
+        self,
+        prefix_conditioning,
+        audio_prefix_codes=None,
+        max_new_tokens: int = 86 * 30,
+        cfg_scale: float = 2.0,
+        sampling_params=None,
+        seed=None,
+        first_chunk_frames: int = 16,
+        chunk_frames: int = 64,
+        kv_int8: bool | None = None,
+    ):
+        """Streaming generation: yields (pcm float32 [T], sample_rate) chunks,
+        the first after the prefill and ``first_chunk_frames`` decode steps."""
+        return streaming.generate_stream(
+            self.params, self.config, prefix_conditioning, autoencoder=self.autoencoder,
+            audio_prefix_codes=audio_prefix_codes, max_new_tokens=max_new_tokens, cfg_scale=cfg_scale,
+            sampling_params=sampling_params, seed=seed, first_chunk_frames=first_chunk_frames,
+            chunk_frames=chunk_frames, dtype=self.dtype,
+            kv_int8=self.default_kv_int8 if kv_int8 is None else kv_int8, device=self.device,
         )
 
     @property

@@ -1,10 +1,12 @@
-"""Int8 decode matmul kernels K1 and K3 (port of ``zonos_tpu/ops/pallas_matmul.py``).
+"""Decode matmul kernels K1, K3 and K4 (port of ``zonos_tpu/ops/pallas_matmul.py``).
 
 * K1 ``int8_matmul`` (``csrc/int8_matmul.cu``) replaces the Pallas
   ``int8_matmul``: y = x @ wq * s for 1-16 rows.
 * K3 ``fused_mlp_int8`` / ``fused_mlp_int8_split`` (``csrc/fused_mlp_int8.cu``)
   replace the Pallas ``fused_mlp_int8`` / ``fused_mlp_int8_split``: the
   gated-SiLU MLP with int8 weights.
+* K4 ``int4_matmul`` (``csrc/int4_matmul.cu``) replaces the Pallas
+  ``int4_matmul``: y = x @ dequant(q4, s4) for 1-16 rows, group-wise int4.
 
 Each wrapper takes its plain PyTorch version for tensors on the CPU, and only
 there; for CUDA tensors it launches the kernel or raises. ``launches`` on each
@@ -186,6 +188,68 @@ fused_mlp_int8_split.launches = 0
 
 
 # ---------------------------------------------------------------------------
+# K4: group-wise int4 GEMV
+# ---------------------------------------------------------------------------
+
+def unpack_nibbles(packed: torch.Tensor, dtype) -> torch.Tensor:
+    """uint8 [..., group/2, N] → values [..., group, N] in ``dtype``.
+
+    Low nibbles are group rows [0, group/2), high nibbles rows [group/2, group),
+    both two's complement.
+    """
+    p = packed.to(torch.int32)
+    lo, hi = p & 0xF, (p >> 4) & 0xF
+    lo = torch.where(lo > 7, lo - 16, lo)
+    hi = torch.where(hi > 7, hi - 16, hi)
+    return torch.cat([lo, hi], dim=-2).to(dtype)
+
+
+def int4_matmul_plain(x: torch.Tensor, q4: torch.Tensor, s4: torch.Tensor) -> torch.Tensor:
+    """y[b, n] = sum_g s4[g, n] * (x[b, group g] @ q[group g, n]) → [B, N] f32.
+
+    Exact products (bf16 or f32 x int4 in f32), per-group f32 sums, the scale
+    applied to each group's sum: what K4 computes, and at float32 the JAX
+    package's XLA path.
+    """
+    g, half, n = q4.shape
+    xg = x.float().reshape(x.shape[0], g, 2 * half)
+    y = torch.einsum("bgk,gkn->bgn", xg, unpack_nibbles(q4, torch.float32))
+    return (y * s4.reshape(1, g, n).float()).sum(dim=1)
+
+
+def _split_groups(g: int, n: int, b: int) -> tuple[int, int]:
+    """(groups per K chunk, number of chunks): whole groups, about _TARGET_BLOCKS blocks."""
+    tiles = math.ceil(n / _COLS_PER_BLOCK) * math.ceil(b / (1 if b == 1 else 2))
+    splits = max(1, min(math.ceil(_TARGET_BLOCKS / tiles), g))
+    per_chunk = math.ceil(g / splits)
+    return per_chunk, math.ceil(g / per_chunk)
+
+
+def int4_matmul(x: torch.Tensor, q4: torch.Tensor, s4: torch.Tensor) -> torch.Tensor:
+    """x [B, K] · dequant(q4 uint8 [G, group/2, N], s4 f32 [G, 1, N]) → [B, N] f32."""
+    if x.device.type == "cpu":
+        return int4_matmul_plain(x, q4, s4)
+    _require(q4.dim() == 3 and q4.is_cuda and q4.dtype == torch.uint8 and q4.is_contiguous(),
+             f"int4_matmul: q4 must be a contiguous CUDA uint8 [G, group/2, N] tensor, got {tuple(q4.shape)}")
+    g, half, n = q4.shape
+    b, k = x.shape
+    _require(g * 2 * half == k, f"int4_matmul: {g} groups of {2 * half} rows != K {k}")
+    _check_x(x, k, "int4_matmul")
+    _check_s(s4, g * n, "int4_matmul")
+    per_chunk, splits = _split_groups(g, n, b)
+    partial = torch.empty((splits, b, n), dtype=torch.float32, device=x.device)
+    y = torch.empty((b, n), dtype=torch.float32, device=x.device)
+    err = _lib_int4().zt_int4_matmul(_ptr(x), _ptr(q4), _ptr(s4), _ptr(partial), _ptr(y),
+                                     b, k, n, 2 * half, per_chunk, splits, _stream())
+    _build.check(err, "int4_matmul")
+    int4_matmul.launches += 1
+    return y
+
+
+int4_matmul.launches = 0
+
+
+# ---------------------------------------------------------------------------
 # Library binding (built at first use, never at import)
 # ---------------------------------------------------------------------------
 
@@ -204,4 +268,11 @@ def _lib_mlp() -> ctypes.CDLL:
     lib.zt_fused_mlp_int8.argtypes = [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                                       _I, _I, _I, _I, _I, _I, _I, _I, _P]
     lib.zt_fused_mlp_int8.restype = _I
+    return lib
+
+
+def _lib_int4() -> ctypes.CDLL:
+    lib = _build.load("int4_matmul")
+    lib.zt_int4_matmul.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
+    lib.zt_int4_matmul.restype = _I
     return lib

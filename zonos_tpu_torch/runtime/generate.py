@@ -163,6 +163,66 @@ def pad_conditioning(prefix_conditioning, pad: int, dtype, device) -> torch.Tens
 # Host-side orchestration
 # ---------------------------------------------------------------------------
 
+@dataclasses.dataclass
+class Request:
+    """The device-side inputs of one generate call, shared by every request loop."""
+
+    statics: GenerateStatics
+    delayed_init: torch.Tensor  # [B, n_q, S_delayed] int32
+    cond_padded: torch.Tensor  # [2B, prefill_len - (Lp + 1), D]
+    pad_amount: torch.Tensor  # [2B] int32
+    generators: list
+    prefix_frames: int  # Lp
+    max_steps: int
+
+
+def prepare_request(
+    cfg: ZonosConfig,
+    prefix_conditioning,
+    audio_prefix_codes: np.ndarray | None,
+    max_new_tokens: int,
+    cfg_scale: float,
+    batch_size: int,
+    sampling_params: SamplingParams | dict | None,
+    seed: int | None,
+    dtype,
+    forbid_eos: bool,
+    kv_int8: bool,
+    device,
+) -> Request:
+    """Bucket the prefill, the delayed-code buffer and the cache as the JAX
+    package does, and place the request's inputs on ``device``."""
+    if isinstance(sampling_params, dict):
+        sampling_params = SamplingParams(**sampling_params)
+    sampling_params = sampling_params or SamplingParams(min_p=0.1)
+    if cfg_scale == 1.0:
+        raise ValueError("cfg_scale=1 is not supported: the decode loop is CFG-doubled")
+
+    n_q = cfg.codebook_dimension
+    lp = 0 if audio_prefix_codes is None else int(audio_prefix_codes.shape[2])
+    t0 = int(prefix_conditioning.shape[1]) + lp + 1
+    prefill_len = _bucket(t0, PREFILL_BUCKET)
+    delayed_len = _bucket(lp + max_new_tokens + n_q, AUDIO_BUCKET)
+    cache_len = _bucket(prefill_len + (delayed_len - (lp + 1)) + 1, 128)
+    statics = GenerateStatics(
+        cfg=cfg, sampling=sampling_params, prefill_len=prefill_len, delayed_len=delayed_len,
+        cache_len=cache_len, batch_size=batch_size, forbid_eos=forbid_eos, kv_int8=kv_int8,
+    )
+    codes = np.full((batch_size, n_q, delayed_len - n_q), UNKNOWN_TOKEN, np.int32)
+    if audio_prefix_codes is not None:
+        codes[..., :lp] = np.asarray(audio_prefix_codes, np.int32)
+    pad = prefill_len - t0
+    return Request(
+        statics=statics,
+        delayed_init=torch.as_tensor(apply_delay_pattern_np(codes, cfg.masked_token_id), device=device),
+        cond_padded=pad_conditioning(prefix_conditioning, pad, dtype, device),
+        pad_amount=torch.full((2 * batch_size,), pad, dtype=torch.int32, device=device),
+        generators=row_generators(seed, batch_size, device),
+        prefix_frames=lp,
+        max_steps=max_new_tokens + n_q - 2,
+    )
+
+
 def generate(
     params: dict,
     cfg: ZonosConfig,
@@ -191,40 +251,19 @@ def generate(
     from zonos_tpu_torch.runtime.streaming import build_prefill_fn, build_segment_fn
 
     device = resolve_device(device)
-    if isinstance(sampling_params, dict):
-        sampling_params = SamplingParams(**sampling_params)
-    sampling_params = sampling_params or SamplingParams(min_p=0.1)
-    assert cfg_scale != 1.0, "cfg_scale=1 not supported"
-
-    n_q = cfg.codebook_dimension
-    lp = 0 if audio_prefix_codes is None else int(audio_prefix_codes.shape[2])
-    lc = int(prefix_conditioning.shape[1])
-    t0 = lc + lp + 1
-    prefill_len = _bucket(t0, PREFILL_BUCKET)
-    delayed_len = _bucket(lp + max_new_tokens + n_q, AUDIO_BUCKET)
-    cache_len = _bucket(prefill_len + (delayed_len - (lp + 1)) + 1, 128)
-    statics = GenerateStatics(
-        cfg=cfg, sampling=sampling_params, prefill_len=prefill_len, delayed_len=delayed_len,
-        cache_len=cache_len, batch_size=batch_size, forbid_eos=forbid_eos, kv_int8=kv_int8,
-    )
-
-    codes = np.full((batch_size, n_q, delayed_len - n_q), UNKNOWN_TOKEN, np.int32)
-    if audio_prefix_codes is not None:
-        codes[..., :lp] = np.asarray(audio_prefix_codes, np.int32)
-    delayed_init = torch.as_tensor(apply_delay_pattern_np(codes, cfg.masked_token_id), device=device)
-    pad = prefill_len - t0
-    cond_padded = pad_conditioning(prefix_conditioning, pad, dtype, device)
-    pad_amount = torch.full((2 * batch_size,), pad, dtype=torch.int32, device=device)
-    generators = row_generators(seed, batch_size, device)
+    req = prepare_request(cfg, prefix_conditioning, audio_prefix_codes, max_new_tokens, cfg_scale, batch_size,
+                          sampling_params, seed, dtype, forbid_eos, kv_int8, device)
+    statics = req.statics
 
     tic = time.perf_counter()
-    carry = build_prefill_fn(statics)(params, cond_padded, delayed_init, lp + 1, pad_amount, cfg_scale, generators)
+    carry = build_prefill_fn(statics)(params, req.cond_padded, req.delayed_init, req.prefix_frames + 1,
+                                      req.pad_amount, cfg_scale, req.generators)
     if stats is not None:
         _sync(device)
         stats["prefill_s"] = time.perf_counter() - tic
         tic = time.perf_counter()
     final, _status, _codes = build_segment_fn(statics)(
-        params, carry, pad_amount, cfg_scale, max_steps=max_new_tokens + n_q - 2, segment_end=2**30,
+        params, carry, req.pad_amount, cfg_scale, max_steps=req.max_steps, segment_end=2**30,
     )
     delayed_out = final.delayed_codes.cpu().numpy()  # the device-to-host copy syncs
     stop_offset = final.stop_offset.cpu().numpy()
