@@ -7,26 +7,36 @@ Phases; any failure exits non-zero:
   0. the card: name and power limit (nvidia-smi), TF32 off for every f32 compare;
   1. build every CUDA kernel from zonos_tpu_torch/csrc (one nvcc per source, in
      parallel) and, beside them, the native G2P library (g++);
-  2. each kernel against its plain PyTorch version on the card at the main
-     path's shapes, with times (CUDA events, median of 50 after warm-up, L2
-     flushed before each launch), the least time the card could take, and a
-     PyTorch library call of the same function as a yardstick;
-  3. a 2-layer model at full width (d 2048), int8 and then int4, on the card
+  2. each decode kernel (K1-K4) against its plain PyTorch version on the card
+     at the main path's shapes, with times (CUDA events, median of 50 after
+     warm-up, L2 flushed before each launch), the least time the card could
+     take, and a PyTorch library call of the same function as a yardstick;
+  3. the streaming probes K5/K6: one int8 [16384, 8192] array summed once by
+     each (their own path, launch counts set to 0 before it and checked after
+     it), both held exactly to the plain version and torch.sum, with times and
+     the achieved rate beside the 3.35 TB/s every bound assumes;
+  4. a 2-layer model at full width (d 2048), int8 and then int4, on the card
      in bf16 with the kernels against the same weights on the CPU in f32 with
      the plain versions: prefill + 8 teacher-forced decode steps, logits
      compared, and a short DAC decode compared the same way;
-  4. the main path: the flagship transformer (24 layers), int8 weights and KV,
+  5. the main path: the flagship transformer (24 layers), int8 weights and KV,
      860 frames (10 s) at cfg 2.0 and min-p 0.1, then the full-size DAC to
      int16 PCM; run twice, the second run timed with every kernel's launch
      count set to 0 before it and checked after it;
-  5. the facade path on int4 weights: English text and a speaker vector through
+  6. the facade path on int4 weights: English text and a speaker vector through
      make_cond_dict, prepare_conditioning (cfg 2.0) and generate_audio (the DAC
      of settled spans interleaved with the decode loop) to 430 frames of int16
      PCM; a warm-up run, then a run with every launch count set to 0 before it
      and checked after it; the phonemes must come from the native G2P engine;
      at greedy, generate_audio against generate + a whole-request DAC decode;
-  6. a 32-frame generate under torch.profiler: device time per decode step
-     against the step's wall time from phase 4, and the top kernels.
+  7. the voice-clone request on phase 5's int8 model: pipeline.tts with a 10 s
+     speaker wav (24 kHz, through the full ResNet293 tower) and a 3 s prefix
+     wav (44.1 kHz, through the full DAC encoder: 259 frames continued); a
+     warm-up request, then one on new file names (cache misses) with every
+     launch count set to 0 before it and checked after it; then the speaker
+     tower (2 s clip) and the DAC encoder (1 s clip) card against CPU in f32;
+  8. a 32-frame generate under torch.profiler: device time per decode step
+     against the step's wall time from phase 5, and the top kernels.
 Prints one line per kernel check, a ``{"kernels": [...]}`` line, the card's
 name and power limit, and last ``{"ok": true, "device": {...}}``.
 """
@@ -35,8 +45,10 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -57,8 +69,9 @@ def _card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def _time_ms(fn, flush: torch.Tensor) -> float:
-    """Median device time of fn over REPS launches, each after an L2 flush.
+def _time_ms(fn, flush: torch.Tensor | None) -> float:
+    """Median device time of fn over REPS launches, each after an L2 flush
+    (writing ``flush``; None: no flush).
 
     A spin kernel queued before each timed launch keeps the card busy while
     the host enqueues it, so the events bracket device time only.
@@ -67,7 +80,8 @@ def _time_ms(fn, flush: torch.Tensor) -> float:
         fn()
     times = []
     for _ in range(REPS):
-        flush.zero_()
+        if flush is not None:
+            flush.zero_()
         torch.cuda._sleep(200_000)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
@@ -258,7 +272,61 @@ def _k4_cases(gen, flush):
 
 
 # ---------------------------------------------------------------------------
-# Phase 3: two full-width layers, card (bf16, kernels) vs CPU (f32, plain)
+# Phase 3: the streaming probes K5/K6
+# ---------------------------------------------------------------------------
+
+STREAM_SHAPE, STREAM_BLK = (16384, 8192), 512  # tools/bench_stream.py's array and block
+
+
+def _k56_cases(gen, flush):
+    """K5/K6 on their own path (one sum each, counted), then held exactly to
+    the plain version and torch.sum, and timed. Returns ({name: launches on
+    the path}, {name: row})."""
+    from zonos_tpu_torch.ops import stream_sum as S
+
+    r, c = STREAM_SHAPE
+    w = torch.randint(-127, 127, (r, c), generator=gen, device="cuda", dtype=torch.int8)
+    probes = (S.grid_sum_once, S.manual_sum_once)
+    for k in probes:
+        k.launches = 0
+    path_out = {k.__name__: k(w, STREAM_BLK) for k in probes}
+    counts = {k.__name__: k.launches for k in probes}
+    if counts != {k.__name__: 1 for k in probes}:
+        _fail(f"phase 3: probe launch counts {counts}")
+
+    lib = lambda: torch.sum(w, dtype=torch.int32)  # noqa: E731
+    expect = int(lib())
+    wrap = torch.full((4096, 4352), 127, dtype=torch.int8, device="cuda")  # 2,263,875,584 wraps past 2**31
+    wrap_expect = 2_263_875_584 - 2**32
+    rows = {}
+    for k in probes:
+        name = k.__name__
+        got = {"path": int(path_out[name]), "again": int(k(w, STREAM_BLK)),
+               "plain": int(S.stream_sum_plain(w, STREAM_BLK)), "torch.sum": expect}
+        wrapped = {"kernel": int(k(wrap, STREAM_BLK)), "plain": int(S.stream_sum_plain(wrap, STREAM_BLK)),
+                   "torch.sum": int(torch.sum(wrap, dtype=torch.int32))}
+        if len(set(got.values())) != 1 or set(wrapped.values()) != {wrap_expect}:
+            _fail(f"phase 3: {name} sums {got}, wrapping case {wrapped} (expected {wrap_expect})")
+        # The array is 2.7x the L2, so no flush: a written flush buffer leaves
+        # dirty L2 lines whose write-back lands inside the timed launch
+        # (timed once with it, for the size of that effect).
+        timed = []
+        for blk in (STREAM_BLK, 64):
+            ms = _time_ms(lambda: k(w, blk), None)
+            timed.append({"blk": blk, "ms": ms, "gb_per_s": r * c / ms / 1e6})
+        row = {"case": f"[{r}, {c}] int8, blk {STREAM_BLK}", "max_abs_err": 0.0, "sum": got["path"],
+               "ms": timed[0]["ms"], "gb_per_s": timed[0]["gb_per_s"], "blk_64": timed[1],
+               "ms_after_written_flush": _time_ms(lambda: k(w, STREAM_BLK), flush),
+               "plain_ms": _time_ms(lambda: S.stream_sum_plain(w, STREAM_BLK), None),
+               "library_ms": _time_ms(lib, None), "assumed_gb_per_s": HBM_BYTES_PER_S / 1e9}
+        row["bound_ms"], row["bound_by"] = _bound_ms(r * c + 4, r * c)
+        rows[name] = row
+        print("phase3", name, json.dumps(row), flush=True)
+    return counts, rows
+
+
+# ---------------------------------------------------------------------------
+# Phase 4: two full-width layers, card (bf16, kernels) vs CPU (f32, plain)
 # ---------------------------------------------------------------------------
 
 def _phase_small_model(bits: int):
@@ -298,11 +366,11 @@ def _phase_small_model(bits: int):
             lg_cpu, _ = _decode_logits(cpu.params, statics, frame, cache_cpu, 128 + t, pad_cpu, 2.0)
             lg_gpu, _ = _decode_logits(card_params, statics, frame.cuda(), cache_gpu, 128 + t, pad_gpu, 2.0)
             corrs.append(_corr(lg_gpu, lg_cpu))
-    print(f"phase3 int{bits} logits corr (prefill, 8 decode steps):", json.dumps([round(c, 6) for c in corrs]),
+    print(f"phase4 int{bits} logits corr (prefill, 8 decode steps):", json.dumps([round(c, 6) for c in corrs]),
           flush=True)
     # bf16 activations and KV on the card against f32 on the CPU: corr > 0.999
     if min(corrs) <= 0.999:
-        _fail(f"phase 3: 2-layer int{bits} card/CPU logits correlation {min(corrs):.6f} <= 0.999")
+        _fail(f"phase 4: 2-layer int{bits} card/CPU logits correlation {min(corrs):.6f} <= 0.999")
 
 
 def _phase_small_dac():
@@ -315,9 +383,9 @@ def _phase_small_dac():
     codes = np.random.default_rng(2).integers(0, 1024, size=(1, 9, 16)).astype(np.int32)
     wav_gpu, wav_cpu = dac_gpu.decode(codes), dac_cpu.decode(codes)
     c = _corr(torch.as_tensor(wav_gpu), torch.as_tensor(wav_cpu))
-    print(f"phase3 DAC 16 frames card bf16 vs CPU f32: corr {c:.6f}", flush=True)
+    print(f"phase4 DAC 16 frames card bf16 vs CPU f32: corr {c:.6f}", flush=True)
     if not np.isfinite(wav_gpu).all() or c <= 0.99:  # bf16 convolutions through 4 upsampling blocks
-        _fail(f"phase 3: DAC card/CPU correlation {c:.6f} <= 0.99")
+        _fail(f"phase 4: DAC card/CPU correlation {c:.6f} <= 0.99")
 
 
 def _to_numpy(tree):
@@ -330,7 +398,7 @@ def _to_numpy(tree):
 
 
 # ---------------------------------------------------------------------------
-# Phase 4: the main path at full size
+# Phase 5: the main path at full size
 # ---------------------------------------------------------------------------
 
 def _phase_main_path(card: str):
@@ -345,7 +413,7 @@ def _phase_main_path(card: str):
     model = Zonos.from_config(cfg, seed=0, dtype=torch.bfloat16, device="cuda").quantize()
     ae = model.autoencoder
     torch.cuda.synchronize()
-    print(f"phase4 model init + int8 quantize: {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"phase5 model init + int8 quantize: {time.perf_counter() - t0:.1f} s", flush=True)
     cond = np.random.default_rng(0).normal(size=(2, 80, cfg.backbone.d_model)).astype(np.float32) * 0.05
     frames = 860
 
@@ -373,13 +441,13 @@ def _phase_main_path(card: str):
     # one K2 and one K3 per layer; the prefill's last-position heads on K1.
     expected = {"int8_matmul": steps * (2 * L + 1) + 1, "attn_core_int8": steps * L,
                 "fused_mlp_int8": steps * L, "fused_mlp_int8_split": 0, "int4_matmul": 0}
-    print("phase4 launches:", json.dumps(counts), "expected:", json.dumps(expected), flush=True)
+    print("phase5 launches:", json.dumps(counts), "expected:", json.dumps(expected), flush=True)
     if counts != expected:
-        _fail(f"phase 4: launch counts {counts} != expected {expected}")
+        _fail(f"phase 5: launch counts {counts} != expected {expected}")
     if codes.shape != (1, cfg.codebook_dimension, frames) or codes.min() < 0 or codes.max() > 1023:
-        _fail(f"phase 4: codes shape {codes.shape}, range [{codes.min()}, {codes.max()}]")
+        _fail(f"phase 5: codes shape {codes.shape}, range [{codes.min()}, {codes.max()}]")
     if pcm.shape != (1, frames * 512) or pcm.dtype != np.int16:
-        _fail(f"phase 4: PCM shape {pcm.shape} dtype {pcm.dtype}")
+        _fail(f"phase 5: PCM shape {pcm.shape} dtype {pcm.dtype}")
     audio_s = frames * 512 / 44100
     result = {
         "card": card, "frames": frames, "audio_s": audio_s, "decode_steps": steps,
@@ -389,12 +457,12 @@ def _phase_main_path(card: str):
         "pcm_rms": float(np.sqrt(np.mean(pcm.astype(np.float64) ** 2))),
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
     }
-    print("phase4 main path:", json.dumps(result), flush=True)
+    print("phase5 main path:", json.dumps(result), flush=True)
     return counts, model, cond, result
 
 
 # ---------------------------------------------------------------------------
-# Phase 5: the facade path on int4 weights, text to PCM
+# Phase 6: the facade path on int4 weights, text to PCM
 # ---------------------------------------------------------------------------
 
 FACADE_TEXT = ("The quick brown fox jumps over the lazy dog near the riverbank, "
@@ -419,16 +487,16 @@ def _phase_facade_int4(card: str):
     espeak._warn_grapheme_fallback = lambda lang: (fallbacks.append(lang), warn(lang))
     phonemes = espeak.phonemize([FACADE_TEXT], ["en-us"])[0]
     native = native_g2p.phonemize(clean([FACADE_TEXT], ["en-us"])[0], "en-us")
-    print("phase5 phonemes:", json.dumps(phonemes, ensure_ascii=False), flush=True)
+    print("phase6 phonemes:", json.dumps(phonemes, ensure_ascii=False), flush=True)
     if fallbacks or native is None or phonemes != native:
-        _fail(f"phase 5: phonemes did not come from the native G2P engine (fallback for {fallbacks})")
+        _fail(f"phase 6: phonemes did not come from the native G2P engine (fallback for {fallbacks})")
 
     cfg = zonos_v01_transformer_config()
     L = cfg.backbone.n_layer
     t0 = time.perf_counter()
     model = Zonos.from_config(cfg, seed=0, dtype=torch.bfloat16, device="cuda").quantize(bits=4)
     torch.cuda.synchronize()
-    print(f"phase5 model init + int4 quantize: {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"phase6 model init + int4 quantize: {time.perf_counter() - t0:.1f} s", flush=True)
     speaker = np.random.default_rng(4).normal(size=(1, 1, 128)).astype(np.float32)
     cd = make_cond_dict(text=FACADE_TEXT, language="en-us", speaker=speaker)
 
@@ -477,23 +545,23 @@ def _phase_facade_int4(card: str):
     # int8 heads on K1, one K2 per layer; the prefill's last-position heads on K1.
     expected = {"int4_matmul": steps * 4 * L, "int8_matmul": steps + 1, "attn_core_int8": steps * L,
                 "fused_mlp_int8": 0, "fused_mlp_int8_split": 0}
-    print("phase5 launches:", json.dumps(counts), "expected:", json.dumps(expected), flush=True)
+    print("phase6 launches:", json.dumps(counts), "expected:", json.dumps(expected), flush=True)
     if counts != expected:
-        _fail(f"phase 5: launch counts {counts} != expected {expected}")
+        _fail(f"phase 6: launch counts {counts} != expected {expected}")
     hop, sr = model.autoencoder.config.hop_length, model.autoencoder.sampling_rate
     if wav.shape != (1, FACADE_FRAMES * hop) or wav.dtype != np.int16 or list(lengths) != [FACADE_FRAMES]:
-        _fail(f"phase 5: PCM shape {wav.shape} dtype {wav.dtype} lengths {lengths}")
+        _fail(f"phase 6: PCM shape {wav.shape} dtype {wav.dtype} lengths {lengths}")
     rms = float(np.sqrt(np.mean(wav.astype(np.float64) ** 2)))
 
     if list(pipe_lengths) != list(seq_lengths) or pcm_pipe.shape != pcm_seq.shape:
-        _fail(f"phase 5: greedy lengths {pipe_lengths} vs {seq_lengths}, shapes {pcm_pipe.shape} vs {pcm_seq.shape}")
+        _fail(f"phase 6: greedy lengths {pipe_lengths} vs {seq_lengths}, shapes {pcm_pipe.shape} vs {pcm_seq.shape}")
     diff = np.abs(pcm_pipe.astype(np.int32) - pcm_seq.astype(np.int32))
     corr = _corr(torch.as_tensor(pcm_pipe), torch.as_tensor(pcm_seq))
     greedy_cmp = {"max_lsb": int(diff.max()), "equal_share": float((diff == 0).mean()), "corr": corr}
-    print("phase5 greedy generate_audio vs generate + decode:", json.dumps(greedy_cmp), flush=True)
+    print("phase6 greedy generate_audio vs generate + decode:", json.dumps(greedy_cmp), flush=True)
     # bf16 convolutions summed in another order for another piece shape
     if greedy_cmp["max_lsb"] > 4 and corr <= 0.9999:
-        _fail(f"phase 5: pipelined and sequential greedy PCM differ: {greedy_cmp}")
+        _fail(f"phase 6: pipelined and sequential greedy PCM differ: {greedy_cmp}")
 
     audio_s = FACADE_FRAMES * hop / sr
     result = {
@@ -504,12 +572,146 @@ def _phase_facade_int4(card: str):
         "sequential_generate_s": t_gen, "sequential_dac_ms": t_dac * 1e3,
         "sequential_rtf": audio_s / (t_gen + t_dac), "pcm_rms": rms, "peak_mem_gb": peak_gb,
     }
-    print("phase5 facade int4 path:", json.dumps(result), flush=True)
+    print("phase6 facade int4 path:", json.dumps(result), flush=True)
     return counts
 
 
 # ---------------------------------------------------------------------------
-# Phase 6: the profiler, last
+# Phase 7: the voice-clone request through pipeline.tts
+# ---------------------------------------------------------------------------
+
+VOICE_TEXT = "Well met, traveler. The road north is dangerous after the first snow."
+
+
+def _voice(seconds: float, sr: int, seed: int) -> np.ndarray:
+    """A seeded voice-like test signal: a gliding harmonic series at a
+    syllable-rate amplitude, with a little noise; float32 in (-1, 1)."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(seconds * sr)) / sr
+    f0 = 120 + 30 * np.sin(2 * np.pi * 0.7 * t) + rng.uniform(-5, 5)
+    phase = 2 * np.pi * np.cumsum(f0) / sr
+    wav = sum(np.sin(h * phase) / h for h in range(1, 12))
+    wav *= 0.5 + 0.5 * np.abs(np.sin(2 * np.pi * 3.5 * t))
+    wav = 0.2 * wav / np.abs(wav).max() + 0.01 * rng.normal(size=t.shape)
+    return wav.astype(np.float32)
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_to(v, device) for v in tree]
+    return None if tree is None else tree.to(device)
+
+
+def _phase_voice_clone(card: str, model):
+    from zonos_tpu_torch.audio.io import read_wav, write_wav
+    from zonos_tpu_torch.audio.resample import resample_poly
+    from zonos_tpu_torch.codec import dac as D
+    from zonos_tpu_torch.ops import cuda_attention as A
+    from zonos_tpu_torch.ops import cuda_matmul as M
+    from zonos_tpu_torch.ops import stream_sum as S
+    from zonos_tpu_torch.serving import pipeline
+    from zonos_tpu_torch.serving.caches import get_prefix_cache
+    from zonos_tpu_torch.speaker.embedding import SpeakerEmbeddingLDA, default_speaker_model
+
+    L = model.config.backbone.n_layer
+    ae = model.autoencoder
+    hop = ae.config.hop_length
+    kernels = (M.int8_matmul, A.attn_core_int8, M.fused_mlp_int8, M.fused_mlp_int8_split, M.int4_matmul,
+               S.grid_sum_once, S.manual_sum_once)
+    spk_wav, pre_wav = _voice(10.0, 24000, seed=11), _voice(3.0, 44100, seed=12)
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp, torch.no_grad():
+        os.chdir(tmp)  # the request's caches (cache/) and wav files live here
+        try:
+            for name in ("warm", "timed"):
+                write_wav(f"speaker_{name}.wav", spk_wav, 24000)
+                write_wav(f"prefix_{name}.wav", pre_wav, 44100)
+
+            def request(name, stats=None):
+                return pipeline.tts(model, VOICE_TEXT, speaker_audio=f"speaker_{name}.wav",
+                                    prefix_audio=f"prefix_{name}.wav", randomize_seed=False, seed=420,
+                                    output_path=f"out_{name}.wav", stats=stats)
+
+            request("warm")  # the speaker model's init, cuDNN plans for the tower and the encoder
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for k in kernels:
+                k.launches = 0
+            stats = {}
+            t = time.perf_counter()
+            path, wav, sr, rtf = request("timed", stats)  # new file names: both caches miss
+            t_total = time.perf_counter() - t
+            counts = {k.__name__: k.launches for k in kernels}
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            back, back_sr = read_wav(path)
+            prefix_frames = int(get_prefix_cache().get("prefix_timed").shape[-1])
+        finally:
+            os.chdir(cwd)
+
+    steps = stats["decode_steps"]
+    # as phase 5: K1 for in_proj, out_proj and the heads of every step and the
+    # prefill's heads; one K2 and one K3 per layer and step
+    expected = {"int8_matmul": steps * (2 * L + 1) + 1, "attn_core_int8": steps * L, "fused_mlp_int8": steps * L,
+                "fused_mlp_int8_split": 0, "int4_matmul": 0, "grid_sum_once": 0, "manual_sum_once": 0}
+    print("phase7 launches:", json.dumps(counts), "expected:", json.dumps(expected), flush=True)
+    if counts != expected:
+        _fail(f"phase 7: launch counts {counts} != expected {expected}")
+    frames = wav.shape[0] // hop
+    if prefix_frames != 259:
+        _fail(f"phase 7: a 3 s prefix at 44.1 kHz gave {prefix_frames} frames, not 259")
+    if (sr != ae.sampling_rate or wav.dtype != np.int16 or wav.shape[0] % hop or frames <= prefix_frames
+            or back.shape != (1, wav.shape[0]) or back_sr != sr):
+        _fail(f"phase 7: wav {wav.shape} {wav.dtype} at {sr} Hz, file {back.shape} at {back_sr} Hz")
+
+    # Device time of the two front ends alone, on the request's inputs.
+    spk = default_speaker_model("cuda")
+    spk_in = torch.as_tensor(spk._bucket_pad(resample_poly(spk_wav, 24000, spk.SAMPLE_RATE)[None]), device="cuda")
+    pre_in = torch.as_tensor(ae.preprocess(pre_wav[None], 44100), device="cuda")
+    tower_ms = _time_ms(lambda: spk.embed_device(spk_in), None)
+    encode_ms = _time_ms(lambda: ae.encode_device(pre_in), None)
+
+    # The card against the CPU in f32 (TF32 off), on the same weights.
+    with torch.no_grad():
+        cpu_spk = SpeakerEmbeddingLDA(params=_tree_to(spk.params, "cpu"), lda=_tree_to(spk.lda, "cpu"),
+                                      device="cpu")
+        clip = _voice(2.0, 16000, seed=13)
+        (e_gpu, l_gpu), (e_cpu, l_cpu) = spk(clip, 16000), cpu_spk(clip, 16000)
+        spk_corr = min(_corr(torch.as_tensor(e_gpu), torch.as_tensor(e_cpu)),
+                       _corr(torch.as_tensor(l_gpu), torch.as_tensor(l_cpu)))
+        wav1 = ae.preprocess(_voice(1.0, 44100, seed=14)[None], 44100)
+        ratios = ae.config.downsampling_ratios
+        z_gpu = D.encoder_forward(ae.params["encoder"], torch.as_tensor(wav1, device="cuda"), ratios)
+        z_cpu = D.encoder_forward(_tree_to(ae.params["encoder"], "cpu"), torch.as_tensor(wav1), ratios)
+        c_gpu = D.quantizer_encode(ae.params["quantizer"], z_gpu).cpu()
+        c_cpu = D.quantizer_encode(_tree_to(ae.params["quantizer"], "cpu"), z_cpu)
+    z_corr = _corr(z_gpu, z_cpu)
+    agree = [float((c_gpu[:, i] == c_cpu[:, i]).float().mean()) for i in range(c_gpu.shape[1])]
+    cmp = {"speaker_2s_corr": spk_corr, "dac_latent_1s_corr": z_corr, "codebook_agreement": agree}
+    print("phase7 card vs CPU (f32):", json.dumps(cmp), flush=True)
+    if not (np.isfinite(e_gpu).all() and np.isfinite(l_gpu).all()) or spk_corr < 0.999:
+        _fail(f"phase 7: speaker embedding card/CPU correlation {spk_corr:.6f} < 0.999")
+    # the RVQ's argmax can flip on a near-tie: codebook 0 is held to 95%
+    if not torch.isfinite(z_gpu).all() or z_corr < 0.999 or agree[0] < 0.95:
+        _fail(f"phase 7: DAC encoder card/CPU latent corr {z_corr:.6f}, codebook agreement {agree}")
+
+    audio_s = wav.shape[0] / sr
+    new_s = (frames - prefix_frames) * hop / sr
+    result = {
+        "card": card, "text_chars": len(VOICE_TEXT), "prefix_frames": prefix_frames, "frames": frames,
+        "audio_s": audio_s, "generated_audio_s": new_s, "decode_steps": steps,
+        "speaker_ms": stats["speaker_s"] * 1e3, "speaker_tower_device_ms": tower_ms,
+        "prefix_encode_ms": stats["prefix_s"] * 1e3, "dac_encode_device_ms": encode_ms,
+        "prefill_ms": stats["prefill_s"] * 1e3, "decode_ms_per_frame": stats["segments_s"] * 1e3 / steps,
+        "dac_host_ms": stats["dac_s"] * 1e3, "request_s": t_total, "rtf": audio_s / t_total,
+        "rtf_generated": new_s / t_total, "pipeline_rtf": rtf, "peak_mem_gb": peak_gb,
+    }
+    print("phase7 voice-clone request:", json.dumps(result), flush=True)
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: the profiler, last
 # ---------------------------------------------------------------------------
 
 def _phase_profile(model, cond, result):
@@ -532,16 +734,16 @@ def _phase_profile(model, cond, result):
     kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
     device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     if device_ms == 0:
-        print("phase6 profile: device time not measured (the profiler saw no kernels)", flush=True)
+        print("phase8 profile: device time not measured (the profiler saw no kernels)", flush=True)
         return
     steps = stats["decode_steps"]
     per_step = device_ms / (steps + 1)  # the prefill counted as one more step
     top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:10]
-    print("phase6 profile:", json.dumps({
+    print("phase8 profile:", json.dumps({
         "generate_frames": 32, "decode_steps": steps, "device_ms_total": device_ms,
         "kernel_launches": sum(e.count for e in kernels),
         "device_ms_per_step": per_step,
-        "busy_share_vs_phase4_step": per_step / result["decode_ms_per_frame"],
+        "busy_share_vs_phase5_step": per_step / result["decode_ms_per_frame"],
         "top_kernels": [{"name": e.key[:80], "ms": e.self_device_time_total / 1e3, "count": e.count} for e in top],
     }), flush=True)
 
@@ -581,6 +783,7 @@ def main() -> int:
     k2 = _k2_cases(gen, flush)
     k3 = dict(_k3_cases(gen, flush))
     k4 = _k4_cases(gen, flush)
+    probe_counts, k56 = _k56_cases(gen, flush)
     del flush
 
     _phase_small_model(bits=8)
@@ -588,6 +791,7 @@ def main() -> int:
     _phase_small_dac()
     counts, model, cond, result = _phase_main_path(card)
     facade_counts = _phase_facade_int4(card)
+    _phase_voice_clone(card, model)
     # last: once torch.profiler has run, host cost per op stays raised in the process
     _phase_profile(model, cond, result)
     del model
@@ -612,6 +816,10 @@ def main() -> int:
               [k3["K3s"]], counts["fused_mlp_int8_split"]),
         entry("int4_matmul", "zonos_tpu_torch/csrc/int4_matmul.cu", "zonos_tpu/ops/pallas_matmul.py:120",
               k4, facade_counts["int4_matmul"]),
+        entry("grid_sum_once", "zonos_tpu_torch/csrc/stream_sum.cu", "tools/bench_stream.py:40",
+              [k56["grid_sum_once"]], probe_counts["grid_sum_once"]),
+        entry("manual_sum_once", "zonos_tpu_torch/csrc/stream_sum.cu", "tools/bench_stream.py:79",
+              [k56["manual_sum_once"]], probe_counts["manual_sum_once"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"card: {_card_line()}", flush=True)

@@ -14,6 +14,8 @@ from zonos_tpu_torch.config import tiny_transformer_config
 from zonos_tpu_torch.models.zonos import Zonos
 from zonos_tpu_torch.runtime import streaming
 from zonos_tpu_torch.runtime.generate import generate
+from zonos_tpu_torch.serving import audio_prep, pipeline
+from zonos_tpu_torch.speaker.embedding import SpeakerEmbeddingLDA, default_speaker_model
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -36,11 +38,13 @@ def test_port_and_chip_smoke_import_without_jax():
     assert int(out.stdout.split()[0]) >= 15
 
 
-@pytest.mark.parametrize("entry", ["zonos", "dac", "generate", "facade", "generate_audio", "stream"])
-def test_entry_points_default_to_cuda(monkeypatch, entry):
+@pytest.mark.parametrize("entry", ["zonos", "dac", "generate", "facade", "generate_audio", "stream", "speaker",
+                                   "default_speaker", "speaker_audio", "dac_encode", "tts"])
+def test_entry_points_default_to_cuda(monkeypatch, tmp_path, entry):
     """Every entry point raises without a card unless the caller asks for the
     CPU. The facade's methods (prepare_conditioning, generate, generate_audio,
-    stream) all run on the model's device, which its constructor resolves."""
+    stream) all run on the model's device, which its constructor resolves;
+    ``pipeline.tts`` runs on its model's device, and the speaker tower there."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cond = torch.zeros(2, 4, 64)
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -54,6 +58,16 @@ def test_entry_points_default_to_cuda(monkeypatch, entry):
             Zonos(tiny_transformer_config(), {})
         elif entry == "generate_audio":
             streaming.generate_audio({}, tiny_transformer_config(), cond, autoencoder=None)
+        elif entry == "speaker":
+            SpeakerEmbeddingLDA()
+        elif entry == "default_speaker":
+            default_speaker_model()
+        elif entry == "speaker_audio":
+            audio_prep.process_speaker_audio(str(tmp_path / "npc.wav"), "m", use_cache=False)
+        elif entry == "dac_encode":
+            DACAutoencoder().encode([[0.0] * 512])
+        elif entry == "tts":
+            pipeline.tts(Zonos(tiny_transformer_config(), {}), "hi", speaker_audio=str(tmp_path / "npc.wav"))
         else:
             next(streaming.generate_stream({}, tiny_transformer_config(), cond))
 

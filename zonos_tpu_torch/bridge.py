@@ -4,8 +4,9 @@ The input is a nested dict of numpy arrays (e.g. ``jax.tree.map(np.asarray,
 params)``); the output holds torch tensors on one device. Layouts are kept:
 layer-stacked ``[L, ...]`` leaves and ``{"q", "s"}`` int8 dicts pass through
 unchanged, and so do ``{"q4", "s4"}`` int4 dicts and the
-``prefix_conditioner`` subtree. Only the DAC's convolution weights change
-layout, to PyTorch's. This module imports no JAX.
+``prefix_conditioner`` subtree. Only the DAC's and the speaker tower's
+convolution and linear weights change layout, to PyTorch's. This module
+imports no JAX.
 """
 
 from __future__ import annotations
@@ -67,11 +68,8 @@ def _res(p: dict, device, dtype) -> dict:
 
 
 def dac_params_from_jax(tree: dict, device="cpu", dtype=torch.float32) -> dict:
-    """JAX DAC params (``init_dac_params`` layout) → the port's decoder + quantizer.
-
-    The encoder and the quantizer's input projections are not ported yet and
-    are dropped.
-    """
+    """JAX DAC params (``init_dac_params`` layout) → the port's encoder, quantizer
+    and decoder. A tree without ``encoder`` (decoder-only) gives none."""
     dec = tree["decoder"]
     decoder = {
         "conv1": _conv(dec["conv1"], device, dtype),
@@ -87,5 +85,53 @@ def dac_params_from_jax(tree: dict, device="cpu", dtype=torch.float32) -> dict:
         "conv2": _conv(dec["conv2"], device, dtype),
     }
     q = tree["quantizer"]
-    quantizer = {k: _tensor(q[k], device, dtype, k) for k in ("codebooks", "out_proj_w", "out_proj_b")}
-    return {"decoder": decoder, "quantizer": quantizer}
+    out = {"decoder": decoder, "quantizer": {k: _tensor(v, device, dtype, k) for k, v in q.items()}}
+    if "encoder" in tree:
+        enc = tree["encoder"]
+        out["encoder"] = {
+            "conv1": _conv(enc["conv1"], device, dtype),
+            "blocks": [
+                {
+                    "res": [_res(r, device, dtype) for r in blk["res"]],
+                    "snake1": _tensor(blk["snake1"], device, dtype, None),
+                    "conv": _conv(blk["conv"], device, dtype),
+                }
+                for blk in enc["blocks"]
+            ],
+            "snake_out": _tensor(enc["snake_out"], device, dtype, None),
+            "conv2": _conv(enc["conv2"], device, dtype),
+        }
+    return out
+
+
+def _speaker_tree(tree, device):
+    """Speaker leaves: 4-d HWIO conv weights (5-d when stacked) → OIHW, the rest as is."""
+    if isinstance(tree, dict):
+        return {k: _speaker_tree(v, device) for k, v in tree.items()}
+    if tree is None:
+        return None
+    a = np.asarray(tree, np.float32)
+    if a.ndim >= 4:  # [..., kh, kw, Cin, Cout] → [..., Cout, Cin, kh, kw]
+        a = np.moveaxis(a, (-1, -2), (-4, -3))
+    return _tensor(np.ascontiguousarray(a), device, torch.float32, None)
+
+
+def speaker_params_from_jax(tree: dict, device="cpu") -> dict:
+    """JAX speaker params (``speaker_state_dict_to_params`` layout, BN folded,
+    ``rest`` blocks stacked) → the port's, float32: convs HWIO → OIHW and the
+    ASP and bottleneck weights [in, out] → PyTorch's [out, in]."""
+    stages = [{"first": _speaker_tree(st["first"], device), "rest": _speaker_tree(st["rest"], device)}
+              for st in tree["resnet"]["stages"]]
+    resnet = {"stem": _speaker_tree(tree["resnet"]["stem"], device), "stages": stages}
+
+    def linear(p):
+        return {"w": _tensor(np.asarray(p["w"], np.float32).T, device, torch.float32, None),
+                "b": _tensor(p["b"], device, torch.float32, None)}
+
+    asp = tree["asp"]
+    return {
+        "resnet": resnet,
+        "asp": {"att_conv1": linear(asp["att_conv1"]), "att_bn": _speaker_tree(asp["att_bn"], device),
+                "att_conv2": linear(asp["att_conv2"])},
+        "bottleneck": linear(tree["bottleneck"]),
+    }

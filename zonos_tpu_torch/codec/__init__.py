@@ -1,1 +1,1 @@
-"""DAC codec (decoder half)."""
+"""DAC codec: encoder, residual VQ and decoder."""

@@ -1,13 +1,17 @@
-"""Descript Audio Codec (44.1 kHz), decoder half (port of ``zonos_tpu/codec/dac.py``).
+"""Descript Audio Codec (44.1 kHz) (port of ``zonos_tpu/codec/dac.py``).
 
-Residual-VQ ``from_codes`` (9 codebooks of dim 8 into a 1024-d latent) and
-the transposed-conv decoder with upsampling ratios (8, 8, 4, 2) → hop 512.
-The public functions keep the JAX package's channels-last [B, T, C] layout;
-inside ``decoder_forward`` the activations run channels-first, PyTorch's
-convolution layout, and are transposed once on the way in. Weights are in
-PyTorch's layout: conv [Cout, Cin, K], conv-transpose [Cin, Cout, K]
-(``bridge.dac_params_from_jax`` converts the JAX ones). The convolutions are
-plain ``torch.nn.functional`` calls: JAX leaves them to XLA too.
+The Snake-activated conv encoder with downsampling ratios (2, 4, 8, 8), the
+residual VQ (9 codebooks of dim 8 over a 1024-d latent: ``quantizer_encode``
+and ``quantizer_from_codes``) and the transposed-conv decoder with
+upsampling ratios (8, 8, 4, 2) → hop 512. The public functions keep the JAX
+package's channels-last [B, T, C] layout; inside ``encoder_forward`` and
+``decoder_forward`` the activations run channels-first, PyTorch's
+convolution layout, and are transposed once on the way in or out. Weights
+are in PyTorch's layout: conv [Cout, Cin, K], conv-transpose [Cin, Cout, K]
+(``bridge.dac_params_from_jax`` converts the JAX ones); the quantizer's
+projections keep the JAX layout, in_proj [n_q, hidden, d] and out_proj
+[n_q, d, hidden]. The encoder and the RVQ run in float32, as in JAX. The
+convolutions are plain ``torch.nn.functional`` calls: JAX leaves them to XLA.
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from zonos_tpu_torch import resolve_device
+from zonos_tpu_torch.audio.resample import resample_poly
 from zonos_tpu_torch.config import DACConfig
 
 
@@ -70,7 +75,7 @@ def _res_unit_ncw(p: dict, x: torch.Tensor, dilation: int) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Decoder / quantizer
+# Decoder / encoder / quantizer
 # ---------------------------------------------------------------------------
 
 def decoder_forward(params: dict, z: torch.Tensor, ratios: tuple[int, ...]) -> torch.Tensor:
@@ -86,6 +91,38 @@ def decoder_forward(params: dict, z: torch.Tensor, ratios: tuple[int, ...]) -> t
     return torch.tanh(h)[:, 0]
 
 
+def encoder_forward(params: dict, wav: torch.Tensor, ratios: tuple[int, ...]) -> torch.Tensor:
+    """wav [B, T] → latent [B, T / hop, hidden]."""
+    h = _conv_ncw(wav[:, None], params["conv1"]["w"], params["conv1"]["b"], padding=3)
+    for blk, stride in zip(params["blocks"], ratios):
+        for i, dil in enumerate((1, 3, 9)):
+            h = _res_unit_ncw(blk["res"][i], h, dil)
+        h = _snake_ncw(h, blk["snake1"])
+        h = _conv_ncw(h, blk["conv"]["w"], blk["conv"]["b"], stride=stride, padding=math.ceil(stride / 2))
+    h = _snake_ncw(h, params["snake_out"])
+    return _conv_ncw(h, params["conv2"]["w"], params["conv2"]["b"], padding=1).transpose(1, 2)
+
+
+def quantizer_encode(params: dict, z: torch.Tensor) -> torch.Tensor:
+    """Latent z [B, T, hidden] → codes [B, n_q, T] int32 (residual VQ, eval mode):
+    for each codebook in turn, the L2-normalised nearest neighbour of the
+    residual's projection, then the chosen entry's reconstruction subtracted."""
+    n_q = params["codebooks"].shape[0]
+    residual = z.float()
+    codes = []
+    for i in range(n_q):
+        lat = residual @ params["in_proj_w"][i].float() + params["in_proj_b"][i].float()
+        cb = params["codebooks"][i].float()  # [V, d]
+        e = lat / lat.norm(dim=-1, keepdim=True).clamp(min=1e-12)
+        c = cb / cb.norm(dim=-1, keepdim=True).clamp(min=1e-12)
+        # -(|e|^2 - 2 e.c + |c|^2), the JAX package's form; argmax over V
+        dist = 2 * (e @ c.T) - (e * e).sum(-1, keepdim=True) + (c * c).sum(-1)[None, None]
+        idx = dist.argmax(dim=-1)  # [B, T]
+        codes.append(idx)
+        residual = residual - (cb[idx] @ params["out_proj_w"][i].float() + params["out_proj_b"][i].float())
+    return torch.stack(codes, dim=1).to(torch.int32)
+
+
 def quantizer_from_codes(params: dict, codes: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
     """codes [B, n_q, T] → latent z [B, T, hidden] (HF from_codes semantics)."""
     cb = params["codebooks"].to(dtype)  # [n_q, V, d]
@@ -97,10 +134,14 @@ def quantizer_from_codes(params: dict, codes: torch.Tensor, dtype=torch.float32)
 
 def init_dac_params(generator: torch.Generator, cfg: DACConfig = DACConfig(), dtype=torch.float32,
                     device=None) -> dict:
-    """Random decoder + quantizer params with the exact shapes of descript/dac_44khz.
+    """Random encoder, quantizer and decoder params with the exact shapes of
+    descript/dac_44khz.
 
     Conv taps are N(0, 0.02²) clipped at ±2σ (JAX draws them truncated at
-    ±2σ); biases zero, snake α one. No pretrained weights are loaded.
+    ±2σ); biases zero, snake α one. No pretrained weights are loaded. The
+    decoder and the quantizer's codebooks and out-projections are drawn first,
+    then the encoder and the in-projections, so a seed gives the same decoder
+    whether or not the encoder exists.
     """
     def normal(shape, std=0.02):
         w = torch.randn(shape, generator=generator, dtype=torch.float32, device=device)
@@ -134,7 +175,22 @@ def init_dac_params(generator: torch.Generator, cfg: DACConfig = DACConfig(), dt
         "out_proj_w": normal((cfg.n_codebooks, cfg.codebook_dim, cfg.hidden_size)).to(dtype),
         "out_proj_b": torch.zeros((cfg.n_codebooks, cfg.hidden_size), dtype=dtype, device=device),
     }
-    return {"decoder": decoder, "quantizer": quantizer}
+    eh = cfg.encoder_hidden_size
+    enc_blocks = []
+    for si, stride in enumerate(cfg.downsampling_ratios):
+        c = eh * 2**si
+        enc_blocks.append({"res": [res(c) for _ in range(3)], "snake1": ones(c),
+                           "conv": conv((2 * c, c, 2 * stride), 2 * c)})
+    c_enc = eh * 2 ** len(cfg.downsampling_ratios)
+    encoder = {
+        "conv1": conv((eh, 1, 7), eh),
+        "blocks": enc_blocks,
+        "snake_out": ones(c_enc),
+        "conv2": conv((cfg.hidden_size, c_enc, 3), cfg.hidden_size),
+    }
+    quantizer["in_proj_w"] = normal((cfg.n_codebooks, cfg.hidden_size, cfg.codebook_dim)).to(dtype)
+    quantizer["in_proj_b"] = torch.zeros((cfg.n_codebooks, cfg.codebook_dim), dtype=dtype, device=device)
+    return {"decoder": decoder, "encoder": encoder, "quantizer": quantizer}
 
 
 def _bucket(n: int, m: int) -> int:
@@ -142,7 +198,8 @@ def _bucket(n: int, m: int) -> int:
 
 
 class DACAutoencoder:
-    """Decoder handle: codes → 44.1 kHz PCM, padded to a frame bucket as in JAX."""
+    """Codec handle on one device: ``preprocess`` + ``encode`` (wav → codes, f32)
+    and ``decode`` (codes → 44.1 kHz PCM, padded to a frame bucket as in JAX)."""
 
     def __init__(self, params: dict | None = None, cfg: DACConfig = DACConfig(), dtype=torch.bfloat16,
                  frame_bucket: int = 128, device=None, seed: int = 0):
@@ -156,6 +213,29 @@ class DACAutoencoder:
             gen.manual_seed(seed)
             params = init_dac_params(gen, cfg, dtype=torch.float32, device=self.device)
         self.params = params
+
+    def preprocess(self, wav: np.ndarray, sr: int) -> np.ndarray:
+        """Resample to the codec's rate and left-pad to a multiple of the hop (host numpy)."""
+        wav = np.asarray(wav, np.float32)
+        if sr != self.sampling_rate:
+            wav = resample_poly(wav, sr, self.sampling_rate)
+        hop = self.config.hop_length
+        left_pad = math.ceil(wav.shape[-1] / hop) * hop - wav.shape[-1]
+        return np.pad(wav, [(0, 0)] * (wav.ndim - 1) + [(left_pad, 0)])
+
+    @torch.no_grad()
+    def encode_device(self, wav: torch.Tensor) -> torch.Tensor:
+        """wav [B, T] (codec rate, a multiple of the hop) → codes [B, n_q, T / hop] int32 on the device."""
+        z = encoder_forward(self.params["encoder"], wav.to(self.device, torch.float32),
+                            self.config.downsampling_ratios)
+        return quantizer_encode(self.params["quantizer"], z)
+
+    def encode(self, wav) -> np.ndarray:
+        """wav [B, T] or [B, 1, T] → codes [B, n_q, T / hop] int32 (numpy)."""
+        wav = torch.as_tensor(np.atleast_2d(np.asarray(wav, np.float32)))
+        if wav.dim() == 3:
+            wav = wav[:, 0]
+        return self.encode_device(wav).cpu().numpy()
 
     @torch.no_grad()
     def _decode(self, codes: torch.Tensor) -> torch.Tensor:
