@@ -14,6 +14,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from zonos_tpu_torch.ops.quant import pad_rows16
+
 # Float leaves the JAX package keeps in f32 whatever the model dtype: the
 # int8 and int4 quant scales and the Fourier conditioners' projection.
 F32_KEYS = frozenset({"s", "s4", "fourier_weight"})
@@ -33,10 +35,15 @@ def params_from_jax(tree, device="cpu", dtype=torch.float32, _key: str | None = 
 
     Integer leaves (int8 weights, packed uint8 int4 weights) keep their
     dtype, the leaves named in ``F32_KEYS`` stay f32, and every other float
-    leaf becomes ``dtype``.
+    leaf becomes ``dtype``. Int8 heads get rows padded to 16 bytes
+    (``ops.quant.pad_rows16``), the port's layout for K1.
     """
     if isinstance(tree, dict):
-        return {k: params_from_jax(v, device, dtype, k) for k, v in tree.items()}
+        out = {k: params_from_jax(v, device, dtype, k) for k, v in tree.items()}
+        heads = out.get("heads")
+        if isinstance(heads, dict) and "q" in heads:  # int8 heads: rows padded to 16 bytes for K1
+            out["heads"] = {**heads, "q": pad_rows16(heads["q"])}
+        return out
     if isinstance(tree, (list, tuple)):
         return [params_from_jax(v, device, dtype, _key) for v in tree]
     return _tensor(tree, device, dtype, _key)

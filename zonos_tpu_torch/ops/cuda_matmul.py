@@ -1,7 +1,8 @@
 """Decode matmul kernels K1, K3 and K4 (port of ``zonos_tpu/ops/pallas_matmul.py``).
 
 * K1 ``int8_matmul`` (``csrc/int8_matmul.cu``) replaces the Pallas
-  ``int8_matmul``: y = x @ wq * s for 1-16 rows.
+  ``int8_matmul``: y = x @ wq * s for 1-16 rows, one launch per call (split-K
+  reduced inside a thread-block cluster; ``int8_matmul_plan``).
 * K3 ``fused_mlp_int8`` / ``fused_mlp_int8_split`` (``csrc/fused_mlp_int8.cu``)
   replace the Pallas ``fused_mlp_int8`` / ``fused_mlp_int8_split``: the
   gated-SiLU MLP with int8 weights.
@@ -19,6 +20,8 @@ products, f32 sums, h rounded to bf16 before fc2).
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 import math
 
 import torch
@@ -26,7 +29,7 @@ import torch
 from zonos_tpu_torch.ops import _build
 
 MAX_ROWS = 16  # K1/K3 take decode-sized row counts; larger batches use torch.matmul
-_COLS_PER_BLOCK = 256  # GEMV_COLS in csrc/gemv_int8.cuh
+_COLS_PER_BLOCK = 256  # GEMV_COLS in csrc/gemv_int8.cuh (K3, K4)
 _ROWS_PER_THREAD_STEP = 16  # GEMV_TY
 _TARGET_BLOCKS = 2 * 132  # two blocks per H100 SM
 
@@ -59,10 +62,13 @@ def _check_x(x: torch.Tensor, k: int, name: str) -> None:
     _require(1 <= x.shape[0] <= MAX_ROWS, f"{name}: 1 <= B <= {MAX_ROWS} rows, got {x.shape[0]}")
 
 
-def _check_w(w: torch.Tensor, shape: tuple[int, int], name: str) -> None:
+def _check_w(w: torch.Tensor, shape: tuple[int, int], name: str, padded_rows: bool = False) -> None:
     _require(w.is_cuda and w.dtype == torch.int8, f"{name}: weight must be a CUDA int8 tensor")
     _require(tuple(w.shape) == shape, f"{name}: weight shape {tuple(w.shape)} != {shape}")
-    _require(w.is_contiguous(), f"{name}: weight must be contiguous row-major")
+    if padded_rows:  # K1 takes the row stride: rows may be padded
+        _require(w.stride(1) == 1 and w.stride(0) >= shape[1], f"{name}: weight must be row-major, row stride >= N")
+    else:
+        _require(w.is_contiguous(), f"{name}: weight must be contiguous row-major")
 
 
 def _check_s(s: torch.Tensor, n: int, name: str) -> torch.Tensor:
@@ -75,6 +81,75 @@ def _check_s(s: torch.Tensor, n: int, name: str) -> torch.Tensor:
 # K1: int8 GEMV
 # ---------------------------------------------------------------------------
 
+K1_COLS = 256  # TN in csrc/int8_matmul.cu: columns per block
+K1_ROW_GROUPS = 8  # KG: rows a block's threads take at once
+K1_SLOT_ROWS = 128  # SK: rows per ring slot, one TMA box
+K1_RING_SLOTS = 3  # NS: ring slots at most
+K1_BAR_BYTES = 128  # BAR_BYTES: the slots' mbarriers
+K1_MIN_RANK_ROWS = 64  # fewest K rows worth a cluster rank
+K1_MAX_RANK_ROWS = 1024  # x's slab per rank stays <= 64 KB at B 16
+K1_FILL = 1.0  # a grid of at least the SMs' count is wide enough
+H100_SMS = 132
+MAX_CLUSTER = 16  # MAX_CLUSTER: the non-portable cluster limit
+MAX_SMEM_BYTES = 232_448  # 227 KB, what one block may use on an H100
+
+
+@dataclasses.dataclass(frozen=True)
+class Int8Plan:
+    rows_padded: int  # RB: x's rows padded to 1, 2, 4, 8 or 16
+    cluster: int  # K ranks per column tile, one cluster
+    kc: int  # K rows per rank
+    per: int  # columns of a tile each rank reduces
+    smem_bytes: int  # dynamic shared memory per block
+
+
+@functools.cache
+def int8_matmul_plan(b: int, k: int, n: int, sms: int = H100_SMS) -> Int8Plan:
+    """K1's launch geometry: grid (cluster, ceil(n / 256)), one cluster per column tile.
+
+    The cluster size is the least power of two that gives the grid K1_FILL
+    of the SMs, while a rank keeps at least K1_MIN_RANK_ROWS rows, and more
+    while a rank would hold more than K1_MAX_RANK_ROWS. Shared memory, in the
+    kernel's order: the slots' mbarriers, the ring (up to 3 slots of 128 rows
+    of 256 bytes, reused afterwards for the 8 row groups' sums [8, RB, 256]
+    f32), x's slab [kc, RB] f32, and the sums the other ranks push for this
+    rank's columns [cluster, RB, per] f32.
+    """
+    rb = next(r for r in (1, 2, 4, 8, 16) if r >= b)
+    tiles = math.ceil(n / K1_COLS)
+    cluster = 1
+    while cluster < MAX_CLUSTER and (
+        (tiles * cluster < K1_FILL * sms and math.ceil(k / (2 * cluster)) >= K1_MIN_RANK_ROWS)
+        or math.ceil(k / cluster) > K1_MAX_RANK_ROWS
+    ):
+        cluster *= 2
+    kc = math.ceil(k / cluster)
+    slots = min(K1_RING_SLOTS, math.ceil(kc / K1_SLOT_ROWS))
+    per = math.ceil(K1_COLS / cluster)
+    ring = max(slots * K1_SLOT_ROWS * K1_COLS, K1_ROW_GROUPS * rb * K1_COLS * 4)
+    return Int8Plan(rb, cluster, kc, per, K1_BAR_BYTES + ring + kc * rb * 4 + cluster * rb * per * 4)
+
+
+def int8_rank_stages(k: int, plan: Int8Plan) -> list[list[tuple[int, int]]]:
+    """Per rank, (first K row, row count) of each ring stage: the kernel's walk over K."""
+    out = []
+    for r in range(plan.cluster):
+        begin = min(k, r * plan.kc)
+        rows = min(k, begin + plan.kc) - begin
+        out.append([(begin + j, min(K1_SLOT_ROWS, rows - j)) for j in range(0, rows, K1_SLOT_ROWS)])
+    return out
+
+
+@functools.cache
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def int8_vector_path(w: torch.Tensor) -> bool:
+    """Whether K1 fills its ring by TMA copies (else by byte loads)."""
+    return w.stride(0) % 16 == 0 and w.data_ptr() % 16 == 0
+
+
 def _mm_f32(x: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
     # int8 and bf16 values are exact in f32: exact products, f32 sums.
     return torch.matmul(x.float(), wq.float())
@@ -86,20 +161,24 @@ def int8_matmul_plain(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor) ->
 
 
 def int8_matmul(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
-    """x [B, K] · wq [K, N] int8 · scale [N] or [1, N] f32 → [B, N] f32."""
+    """x [B, K] · wq [K, N] int8 · scale [N] or [1, N] f32 → [B, N] f32.
+
+    wq may be a view with rows padded (row stride >= N, unit column stride),
+    as the port stores the int8 heads: see ``quant.pad_rows16``.
+    """
     if x.device.type == "cpu":
         return int8_matmul_plain(x, wq, scale)
     b, k = x.shape
     n = wq.shape[1]
     _check_x(x, k, "int8_matmul")
-    _check_w(wq, (k, n), "int8_matmul")
+    _check_w(wq, (k, n), "int8_matmul", padded_rows=True)
     _check_s(scale, n, "int8_matmul")
-    kchunk, splits = _split_k(k, n, b)
-    partial = torch.empty((splits, b, n), dtype=torch.float32, device=x.device)
+    plan = int8_matmul_plan(b, k, n, sms=_sm_count(x.device))
+    _require(plan.smem_bytes <= MAX_SMEM_BYTES,
+             f"int8_matmul: K {k} at B {b} needs {plan.smem_bytes} bytes of shared memory")
     y = torch.empty((b, n), dtype=torch.float32, device=x.device)
-    lib = _lib()
-    err = lib.zt_int8_matmul(_ptr(x), _ptr(wq), _ptr(scale), _ptr(partial), _ptr(y),
-                             b, k, n, kchunk, splits, _stream())
+    err = _lib().zt_int8_matmul(_ptr(x), _ptr(wq), wq.stride(0), _ptr(scale), _ptr(y), b, k, n,
+                                plan.cluster, plan.kc, plan.smem_bytes, _stream())
     _build.check(err, "int8_matmul")
     int8_matmul.launches += 1
     return y
@@ -258,7 +337,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 
 def _lib() -> ctypes.CDLL:
     lib = _build.load("int8_matmul")
-    lib.zt_int8_matmul.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
+    lib.zt_int8_matmul.argtypes = [_P, _P, ctypes.c_longlong, _P, _P, _I, _I, _I, _I, _I, _I, _P]
     lib.zt_int8_matmul.restype = _I
     return lib
 

@@ -23,6 +23,19 @@ def quantize_int8(w: torch.Tensor) -> dict:
     return {"q": q, "s": scale}
 
 
+def pad_rows16(q: torch.Tensor) -> torch.Tensor:
+    """An int8 [K, N] weight as a [K, N] view whose row stride is N rounded up
+    to 16 bytes (zeros in the padding), so that K1 fills its ring by 16-byte
+    copies. Values, shape and the plain versions' results are unchanged."""
+    k, n = q.shape
+    ld = -(-n // 16) * 16
+    if ld == n and q.is_contiguous():
+        return q
+    buf = torch.zeros((k, ld), dtype=q.dtype, device=q.device)
+    buf[:, :n] = q
+    return buf[:, :n]
+
+
 def is_quantized(w) -> bool:
     return isinstance(w, dict) and "q" in w
 
@@ -99,8 +112,9 @@ def quantize_transformer_params(params: dict, bits: int = 8) -> dict:
     """Quantize the backbone's four matmuls per layer and the output heads.
 
     ``bits=8`` makes the four matmuls int8, ``bits=4`` group-wise int4 (group
-    128); the heads stay int8 either way. Embeddings and norms stay in the
-    model dtype. Works on the layer-stacked layout.
+    128); the heads stay int8 either way, their rows padded to 16 bytes
+    (``pad_rows16``). Embeddings and norms stay in the model dtype. Works on
+    the layer-stacked layout.
     """
     if bits not in (4, 8):
         raise ValueError(f"quantize: bits must be 4 or 8, got {bits}")
@@ -117,5 +131,6 @@ def quantize_transformer_params(params: dict, bits: int = 8) -> dict:
     layers["attn"], layers["mlp"] = attn, mlp
     bb["layers"] = layers
     out["backbone"] = bb
-    out["heads"] = quantize_int8(params["heads"])
+    heads = quantize_int8(params["heads"])
+    out["heads"] = {"q": pad_rows16(heads["q"]), "s": heads["s"]}
     return out
