@@ -11,8 +11,9 @@ Phases; any failure exits non-zero:
      at the main path's shapes, with times (CUDA events, median of 50 after
      warm-up, L2 flushed before each launch by writing 256 MB), the least time
      the card could take, and a PyTorch library call of the same function as a
-     yardstick; K1 and K2 and their yardsticks are timed again after a flush
-     that reads the same 256 MB (K5), which leaves clean lines in the L2;
+     yardstick; every kernel but K5/K6 and its yardstick are timed again
+     after a flush that reads the same 256 MB (K5), which leaves clean lines
+     in the L2; K3, K3s and K4 give bit-equal outputs on two calls;
   3. the streaming probes K5/K6: one int8 [16384, 8192] array summed once by
      each (their own path, launch counts set to 0 before it and checked after
      it), both held exactly to the plain version and torch.sum, with times and
@@ -37,9 +38,14 @@ Phases; any failure exits non-zero:
      warm-up request, then one on new file names (cache misses) with every
      launch count set to 0 before it and checked after it; then the speaker
      tower (2 s clip) and the DAC encoder (1 s clip) card against CPU in f32;
-  8. a 32-frame generate under torch.profiler: device time and kernel
-     launches per decode step against the step's wall time from phase 5, the
-     top kernels, and K1/K2 each one device kernel per wrapper call.
+  8. a 32-frame generate under torch.profiler on phase 5's int8 model, then
+     on phase 6's int4 model: device time (the kernels' sum, and the union of
+     their intervals) and kernel launches per decode step against the step's
+     wall time from phase 5 or 6, the top kernels, and
+     each kernel wrapper's device kernels per call as designed (K1, K2 and K4
+     one, K3 two: fc1 + gate, then fc2).
+With ``--parts``, only the device kernels of one K3, K3s or K4 call at the
+main path's shapes, each with its device time under torch.profiler.
 Prints one line per kernel check, a ``{"kernels": [...]}`` line, the card's
 name and power limit, and last ``{"ok": true, "device": {...}}``.
 """
@@ -232,7 +238,7 @@ def _k2_cases(gen, flush, read_flush):
     return rows
 
 
-def _k3_cases(gen, flush):
+def _k3_cases(gen, flush, read_flush):
     from zonos_tpu_torch.ops import cuda_matmul as M
     from zonos_tpu_torch.ops.quant import quantize_int8
 
@@ -259,16 +265,20 @@ def _k3_cases(gen, flush):
     rows = []
     for name, fn in (("K3", fused), ("K3s", split)):
         out = fn()
+        again = fn()
         torch.cuda.synchronize()
         err = (out - ref).abs()
         # h is rounded to bf16 in both; a y or gate summed in another order can
         # round h one bf16 ulp apart: rtol 2e-2, atol 2e-2.
         if not bool((err <= 2e-2 + 2e-2 * ref.abs()).all()) or not torch.isfinite(out).all():
             _fail(f"{name}: max err {err.max().item():.3e}")
+        if not torch.equal(out, again):  # sums in a fixed order
+            _fail(f"{name}: two calls on the same inputs differ")
         row = {
             "case": f"B={b} D={d} F={f}", "max_abs_err": err.max().item(),
             "ms": _time_ms(fn, flush), "plain_ms": _time_ms(plain, flush),
             "library_ms": _time_ms(library, flush),
+            "ms_read_flush": _time_ms(fn, read_flush), "library_ms_read_flush": _time_ms(library, read_flush),
         }
         row["bound_ms"], row["bound_by"] = _bound_ms(nbytes, ops)
         rows.append((name, row))
@@ -276,7 +286,7 @@ def _k3_cases(gen, flush):
     return rows
 
 
-def _k4_cases(gen, flush):
+def _k4_cases(gen, flush, read_flush):
     from zonos_tpu_torch.ops import cuda_matmul as M
     from zonos_tpu_torch.ops.quant import quantize_int4
 
@@ -287,6 +297,7 @@ def _k4_cases(gen, flush):
         x = torch.randn((b, k), generator=gen, device="cuda").to(torch.bfloat16)
         w = quantize_int4(torch.randn((k, n), generator=gen, device="cuda") / k ** 0.5)
         y = M.int4_matmul(x, w["q4"], w["s4"])
+        again = M.int4_matmul(x, w["q4"], w["s4"])
         ref = M.int4_matmul_plain(x, w["q4"], w["s4"])
         torch.cuda.synchronize()
         err = (y - ref).abs()
@@ -295,19 +306,72 @@ def _k4_cases(gen, flush):
         tol = 1e-3 * ref.abs() + 1e-3 * ref.abs().max()
         if not bool((err <= tol).all()) or not torch.isfinite(y).all():
             _fail(f"K4 int4_matmul B={b} {k}->{n}: max err {err.max().item():.3e}")
+        if not torch.equal(y, again):  # sums in a fixed order
+            _fail(f"K4 int4_matmul B={b} {k}->{n}: two calls on the same inputs differ")
         g = w["s4"].shape[0]
         w_bf16 = (M.unpack_nibbles(w["q4"], torch.float32) * w["s4"]).reshape(k, n).to(torch.bfloat16)
+        kernel = lambda: M.int4_matmul(x, w["q4"], w["s4"])  # noqa: E731
+        library = lambda: torch.matmul(x, w_bf16)  # noqa: E731
         row = {
             "case": f"B={b} {k}->{n}", "max_abs_err": err.max().item(),
-            "ms": _time_ms(lambda: M.int4_matmul(x, w["q4"], w["s4"]), flush),
+            "cluster": M.int4_matmul_plan(b, k, n, 128, sms=M._sm_count(x.device)).cluster,
+            "ms": _time_ms(kernel, flush),
             "plain_ms": _time_ms(lambda: M.int4_matmul_plain(x, w["q4"], w["s4"]), flush),
             # yardstick: a bf16 matmul against the pre-dequantized weight (4x the weight bytes)
-            "library_ms": _time_ms(lambda: torch.matmul(x, w_bf16), flush),
+            "library_ms": _time_ms(library, flush),
+            "ms_read_flush": _time_ms(kernel, read_flush), "library_ms_read_flush": _time_ms(library, read_flush),
         }
         row["bound_ms"], row["bound_by"] = _bound_ms(k * n // 2 + g * n * 4 + b * k * 2 + b * n * 4, 2 * b * k * n)
         rows.append(row)
         print("K4", json.dumps(row), flush=True)
     return rows
+
+
+def _kernel_parts() -> None:
+    """``--parts``: each device kernel that one K3, K3s or K4 wrapper call
+    launches, with its mean device time under torch.profiler, after a written
+    256 MB flush before every call (20 calls per case)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from zonos_tpu_torch.ops import _build
+    from zonos_tpu_torch.ops import cuda_matmul as M
+    from zonos_tpu_torch.ops.quant import quantize_int4, quantize_int8
+
+    _build.build_all()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    buf = torch.zeros(256 * 2**20, dtype=torch.uint8, device="cuda")
+    cases = []
+    for b in (2, 16):
+        d, f = 2048, 8192
+        x = torch.randn((b, d), generator=gen, device="cuda").to(torch.bfloat16)
+        w1 = quantize_int8(torch.randn((d, 2 * f), generator=gen, device="cuda") / d ** 0.5)
+        w2 = quantize_int8(torch.randn((f, d), generator=gen, device="cuda") / f ** 0.5)
+        s1 = w1["s"].reshape(-1)
+        w1y, w1g = w1["q"][:, :f].contiguous(), w1["q"][:, f:].contiguous()
+        s1y, s1g = s1[:f].contiguous(), s1[f:].contiguous()
+        cases.append((f"K3 B={b}", lambda x=x, w1=w1, w2=w2: M.fused_mlp_int8(x, w1["q"], w1["s"], w2["q"], w2["s"])))
+        if b == 2:
+            cases.append((f"K3s B={b}", lambda x=x, a=(w1y, s1y, w1g, s1g, w2["q"], w2["s"]): M.fused_mlp_int8_split(x, *a)))
+    for b, k, n in ((2, 2048, 3072), (2, 2048, 2048), (2, 2048, 16384), (2, 8192, 2048), (16, 2048, 3072)):
+        x = torch.randn((b, k), generator=gen, device="cuda").to(torch.bfloat16)
+        w = quantize_int4(torch.randn((k, n), generator=gen, device="cuda") / k ** 0.5)
+        cases.append((f"K4 B={b} {k}->{n}", lambda x=x, w=w: M.int4_matmul(x, w["q4"], w["s4"])))
+    calls = 20
+    for name, fn in cases:
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                buf.zero_()
+                fn()
+            torch.cuda.synchronize()
+        parts = [{"kernel": e.key[:60], "per_call": e.count / calls, "us": e.self_device_time_total / e.count}
+                 for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA and e.count and "Fill" not in e.key]
+        print("parts", name, json.dumps({"card": _card_line(), "kernels": parts,
+                                         "us_per_call": sum(p["us"] * p["per_call"] for p in parts)}), flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -615,7 +679,7 @@ def _phase_facade_int4(card: str):
         "sequential_rtf": audio_s / (t_gen + t_dac), "pcm_rms": rms, "peak_mem_gb": peak_gb,
     }
     print("phase6 facade int4 path:", json.dumps(result), flush=True)
-    return counts
+    return counts, model, cond, result
 
 
 # ---------------------------------------------------------------------------
@@ -756,11 +820,50 @@ def _phase_voice_clone(card: str, model):
 # Phase 8: the profiler, last
 # ---------------------------------------------------------------------------
 
-def _phase_profile(model, cond, result):
-    """Device time of a short generate under torch.profiler: the busy share of
-    the decode step and the kernels that take the device's time."""
+# Device kernels one wrapper call launches, by design (K3: fc1 + gate, then fc2).
+DESIGNED_KERNELS = {"int8_matmul": 1, "attn_core_int8": 1, "fused_mlp_int8": 2, "int4_matmul": 1}
+
+
+def _device_kernels(kernels) -> dict:
+    """Device kernels seen by the profiler, by the wrapper that launches them.
+    K3's fc2 is K1's body launched as a programmatic dependent (its PDL
+    template flag, the last one, set)."""
+    def count(pred):
+        return sum(e.count for e in kernels if pred(e.key))
+
+    fc2 = count(lambda k: "int8_gemv_cluster<" in k and ", true>(" in k)
+    return {
+        "int8_matmul": count(lambda k: "int8_gemv_cluster<" in k) - fc2,
+        "attn_core_int8": count(lambda k: "attn_cluster" in k),
+        "fused_mlp_int8": count(lambda k: "mlp_fc1_gate" in k) + fc2,
+        "int4_matmul": count(lambda k: "int4_gemv_cluster" in k),
+        "k3_fc1": count(lambda k: "mlp_fc1_gate" in k),
+        "k3_fc2": fc2,
+    }
+
+
+def _busy_ms(prof) -> float:
+    """Device time covered by at least one kernel: the union of the kernels'
+    intervals (K3's fc2, launched early, overlaps its fc1, so the sum of
+    kernel times counts that span twice)."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, end = 0.0, float("-inf")
+    for lo, hi in spans:
+        if hi > end:
+            busy += hi - max(lo, end)
+            end = hi
+    return busy / 1e3
+
+
+def _phase_profile(label, model, cond, step_ms):
+    """Device time of a 32-frame generate under torch.profiler: the busy
+    share of the decode step, the kernels that take the device's time, and
+    every kernel wrapper's device kernels per call against its design."""
     from torch.profiler import ProfilerActivity, profile
 
+    from zonos_tpu_torch.ops import cuda_attention as A
+    from zonos_tpu_torch.ops import cuda_matmul as M
     from zonos_tpu_torch.ops.sampling import SamplingParams
 
     def run():
@@ -769,37 +872,36 @@ def _phase_profile(model, cond, result):
                        forbid_eos=True, kv_int8=True, stats=stats)
         return stats
 
-    from zonos_tpu_torch.ops import cuda_attention as A
-    from zonos_tpu_torch.ops import cuda_matmul as M
-
+    wrappers = (M.int8_matmul, A.attn_core_int8, M.fused_mlp_int8, M.fused_mlp_int8_split, M.int4_matmul)
     with torch.no_grad():
         run()
-        M.int8_matmul.launches = A.attn_core_int8.launches = 0
+        for w in wrappers:
+            w.launches = 0
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             stats = run()
-    wrapper_calls = {"int8_matmul": M.int8_matmul.launches, "attn_core_int8": A.attn_core_int8.launches}
+    calls = {w.__name__: w.launches for w in wrappers}
+    calls["fused_mlp_int8"] += calls.pop("fused_mlp_int8_split")
     kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
     device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     if device_ms == 0:
-        print("phase8 profile: device time not measured (the profiler saw no kernels)", flush=True)
+        print(f"phase8 {label} profile: device time not measured (the profiler saw no kernels)", flush=True)
         return
-    # K1 and K2 are one device kernel per wrapper call: no second pass.
-    device_kernels = {
-        "int8_matmul": sum(e.count for e in kernels if "int8_gemv_cluster" in e.key),
-        "attn_core_int8": sum(e.count for e in kernels if "attn_cluster" in e.key),
-    }
-    if device_kernels != wrapper_calls:
-        _fail(f"phase 8: device kernels {device_kernels} != wrapper calls {wrapper_calls}")
+    seen = _device_kernels(kernels)
+    designed = {name: DESIGNED_KERNELS[name] * n for name, n in calls.items()}
+    per_call = {name: seen[name] for name in designed}
+    # K1, K2 and K4 one device kernel per call, K3 two (fc1 + gate, fc2): no other pass
+    if per_call != designed or seen["k3_fc1"] != seen["k3_fc2"]:
+        _fail(f"phase 8 {label}: device kernels {seen} != designed {designed} for wrapper calls {calls}")
     steps = stats["decode_steps"]
     launches = sum(e.count for e in kernels)
     per_step = device_ms / (steps + 1)  # the prefill counted as one more step
     top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:10]
-    print("phase8 profile:", json.dumps({
+    busy_per_step = _busy_ms(prof) / (steps + 1)
+    print(f"phase8 {label} profile:", json.dumps({
         "generate_frames": 32, "decode_steps": steps, "device_ms_total": device_ms,
         "kernel_launches": launches, "kernel_launches_per_step": launches / (steps + 1),
-        "k1_k2_device_kernels": device_kernels, "k1_k2_wrapper_calls": wrapper_calls,
-        "device_ms_per_step": per_step,
-        "busy_share_vs_phase5_step": per_step / result["decode_ms_per_frame"],
+        "wrapper_calls": calls, "device_kernels": seen, "device_ms_per_step": per_step,
+        "device_busy_ms_per_step": busy_per_step, "busy_share_vs_timed_step": busy_per_step / step_ms,
         "top_kernels": [{"name": e.key[:80], "ms": e.self_device_time_total / 1e3, "count": e.count} for e in top],
     }), flush=True)
 
@@ -841,8 +943,8 @@ def main() -> int:
     read_flush = lambda: grid_sum_once(buf.view(torch.int8).view(-1, 8192), STREAM_BLK)  # noqa: E731  clean lines
     k1 = _k1_cases(gen, flush, read_flush)
     k2 = _k2_cases(gen, flush, read_flush)
-    k3 = dict(_k3_cases(gen, flush))
-    k4 = _k4_cases(gen, flush)
+    k3 = dict(_k3_cases(gen, flush, read_flush))
+    k4 = _k4_cases(gen, flush, read_flush)
     probe_counts, k56 = _k56_cases(gen, flush)
     del buf, flush, read_flush
 
@@ -850,11 +952,12 @@ def main() -> int:
     _phase_small_model(bits=4)
     _phase_small_dac()
     counts, model, cond, result = _phase_main_path(card)
-    facade_counts = _phase_facade_int4(card)
+    facade_counts, model4, cond4, result4 = _phase_facade_int4(card)
     _phase_voice_clone(card, model)
     # last: once torch.profiler has run, host cost per op stays raised in the process
-    _phase_profile(model, cond, result)
-    del model
+    _phase_profile("int8", model, cond, result["decode_ms_per_frame"])
+    _phase_profile("int4", model4, cond4, result4["decode_ms_per_frame"])
+    del model, model4
 
     def entry(name, source, replaces, rows, launches):
         main_row = rows[0]
@@ -889,4 +992,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:] == ["--parts"] and torch.cuda.is_available():
+        sys.exit(_kernel_parts())
     sys.exit(main())

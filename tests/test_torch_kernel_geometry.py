@@ -1,9 +1,11 @@
-"""Launch geometry of the cluster kernels K1 and K2, and the padded int8 heads.
+"""Launch geometry of the cluster kernels K1-K4, and the padded int8 heads.
 
 The CUDA kernels split their work on the card by formulas that the wrappers
 mirror in Python (``attn_shares`` / ``attn_stages`` for K2,
-``int8_rank_stages`` for K1): every cache slot and every K row must be taken
-exactly once, the clusters must stay within the hardware's limit and the
+``int8_rank_stages`` for K1 and K3's fc2, ``int4_rank_groups`` for K4,
+``fused_mlp_columns`` / ``fused_mlp_stages`` for K3's fc1): every cache slot,
+K row, int4 group and F column must be taken exactly once, no group may
+straddle two ranks, the clusters must stay within the hardware's limit and the
 shared-memory plans within the 227 KB a block may use on an H100. The int8
 heads are stored with rows padded to 16 bytes so that K1 reads them by TMA;
 logits and greedy codes must not change for it.
@@ -89,6 +91,84 @@ def test_k1_plan_at_the_main_path_shapes():
         assert plan.cluster * -(-n // TM.K1_COLS) >= TM.H100_SMS * 0.9
         for b in range(1, 17):
             assert TM.int8_matmul_plan(b, k, n).smem_bytes <= MAX_SMEM
+
+
+# K4 at the four main-path projections (group 128) and at the tiny config's
+# shapes (group min(128, K)).
+K4_SHAPES = [(2048, 3072, 128), (2048, 2048, 128), (2048, 16384, 128), (8192, 2048, 128),
+             (64, 128, 64), (64, 256, 64), (128, 64, 128), (256, 192, 128)]
+SOME_B = [1, 2, 3, 8, 16]
+
+
+@pytest.mark.parametrize("b", SOME_B)
+@pytest.mark.parametrize("k,n,group", K4_SHAPES)
+def test_k4_ranks_take_each_group_and_packed_row_once(k, n, group, b):
+    plan = TM.int4_matmul_plan(b, k, n, group)
+    g, half = k // group, group // 2
+    assert 1 <= plan.cluster <= TM.MAX_CLUSTER and plan.cluster <= max(g, 1)
+    assert plan.per * plan.cluster >= TM.K4_COLS
+    assert 1 <= plan.slots <= TM.K4_RING_SLOTS and plan.smem_bytes <= MAX_SMEM, plan
+    ranks = TM.int4_rank_groups(k, group, plan)
+    assert len(ranks) == plan.cluster and all(0 <= count <= plan.gpr for _, count in ranks)
+    assert _covered_once(ranks, 0, g)
+    # the ring's stages: one group, group/2 packed rows, each
+    packed = [((first + st) * half, half) for first, count in ranks for st in range(count)]
+    assert _covered_once(packed, 0, k // 2)
+    # no group straddles two ranks: each K row's rank is its group's rank
+    owner = np.full(k, -1)
+    for r, (first, count) in enumerate(ranks):
+        owner[first * group:(first + count) * group] = r
+    assert (owner >= 0).all() and all(len(set(owner[i * group:(i + 1) * group])) == 1 for i in range(g))
+
+
+@pytest.mark.parametrize("k,n", [(2048, 3072), (2048, 2048), (2048, 16384), (8192, 2048)])
+def test_k4_plan_at_the_main_path_shapes(k, n):
+    """Every B from 1 to 16 in one pass within 227 KB; at B 2 the grid is one
+    wave on the 132 SMs of an H100 and fills at least 70% of them."""
+    for b in range(1, 17):
+        plan = TM.int4_matmul_plan(b, k, n, 128)
+        assert plan.smem_bytes <= MAX_SMEM, (b, plan)
+        assert plan.cluster * plan.gpr * 128 >= k
+    plan = TM.int4_matmul_plan(2, k, n, 128)
+    assert TM.H100_SMS * 0.7 <= plan.cluster * -(-n // TM.K4_COLS) <= TM.H100_SMS
+
+
+# K3 at the flagship MLP (D 2048, F 8192) and at tiny widths
+K3_SHAPES = [(2048, 8192, 2048), (64, 128, 64), (128, 256, 128), (256, 96, 256)]
+
+
+@pytest.mark.parametrize("b", SOME_B)
+@pytest.mark.parametrize("d,f,d_out", K3_SHAPES)
+def test_k3_blocks_take_each_f_column_and_row_once(d, f, d_out, b):
+    plan = TM.fused_mlp_plan(b, d, f, d_out)
+    cols = TM.fused_mlp_columns(f, plan)
+    assert len(cols) == plan.blocks and plan.blocks % TM.K3_RANKS == 0
+    assert all(0 <= count <= TM.K3_COLS // TM.K3_RANKS for _, count in cols)
+    assert _covered_once(cols, 0, f)  # y's columns, and the same of the gate
+    # every fc1 cluster's ranks walk all D rows between them, in ring stages
+    stages = TM.fused_mlp_stages(d)
+    assert len(stages) == TM.K3_RANKS
+    pieces = [p for rank in stages for p in rank]
+    assert all(0 < count <= TM.K3_SLOT_ROWS for _, count in pieces) and _covered_once(pieces, 0, d)
+    assert 1 <= plan.fc1_slots <= TM.K3_RING_SLOTS
+    # fc2: K1's ranks over F rows, each rank's stages within its ring
+    assert 1 <= plan.fc2.cluster <= TM.MAX_CLUSTER and plan.fc2.slots <= TM.K3_FC2_RING_SLOTS
+    pieces = [p for rank in TM.int8_rank_stages(f, plan.fc2) for p in rank]
+    assert _covered_once(pieces, 0, f)
+    assert plan.fc1_smem_bytes <= MAX_SMEM and plan.fc2.smem_bytes <= MAX_SMEM, plan
+
+
+def test_k3_plan_at_the_main_path_shape():
+    """Every B from 1 to 16 within 227 KB; fc1's 128 blocks are one wave on
+    an H100, and up to B 4 an fc1 block and an fc2 block fit one SM together
+    (so that fc2's weight copies overlap fc1)."""
+    for b in range(1, 17):
+        plan = TM.fused_mlp_plan(b, 2048, 8192, 2048)
+        assert max(plan.fc1_smem_bytes, plan.fc2.smem_bytes) <= MAX_SMEM, (b, plan)
+        together = plan.fc1_smem_bytes + plan.fc2.smem_bytes + 2 * TM.SMEM_RESERVED_BYTES
+        assert (together <= TM.SM_SMEM_BYTES) == (b <= TM.K3_SHARED_ROWS), (b, plan)
+    plan = TM.fused_mlp_plan(2, 2048, 8192, 2048)
+    assert plan.blocks == 128 <= TM.H100_SMS and plan.fc2.cluster * 8 == 128
 
 
 @pytest.mark.parametrize("n", [16, 130, 9225])

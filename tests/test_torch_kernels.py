@@ -137,12 +137,6 @@ def test_k3_plain_matches_xla_mlp_fp32():
     np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5 * np.abs(ref).max())
 
 
-@pytest.mark.parametrize("k,n,b", [(2048, 3072, 2), (8192, 2048, 2), (2048, 8192, 16), (64, 9225, 1)])
-def test_split_k_covers_k(k, n, b):
-    kchunk, splits = TM._split_k(k, n, b)
-    assert kchunk % 16 == 0 and splits * kchunk >= k > (splits - 1) * kchunk
-
-
 def test_cpu_tensors_count_no_launch():
     rng = np.random.default_rng(4)
     kernels = (TM.int8_matmul, TM.fused_mlp_int8, TM.fused_mlp_int8_split, TA.attn_core_int8)

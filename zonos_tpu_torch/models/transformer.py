@@ -7,9 +7,11 @@ keep the JAX layout: every leaf of ``params["layers"]`` carries a leading
 ``lax.scan``.
 
 The decode step (one token, S = 1) runs through the CUDA kernels where they
-apply: int8 projections through K1 (``ops.quant.qeinsum``), attention over
-the int8 cache through K2 (``ops.cuda_attention``), and the int8 MLP through
-K3 (``ops.cuda_matmul.fused_mlp_int8``). The prefill stays on torch.matmul.
+apply: int8 projections through K1 and int4 projections (the MLP's too)
+through K4 (``ops.quant.qeinsum``), attention over the int8 cache through K2
+(``ops.cuda_attention``), and the int8 MLP through K3
+(``ops.cuda_matmul.fused_mlp_int8``: fc1 and the gate, then fc2). The
+prefill stays on torch.matmul.
 """
 
 from __future__ import annotations
