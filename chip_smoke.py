@@ -8,20 +8,24 @@ Phases; any failure exits non-zero:
   1. build every CUDA kernel from zonos_tpu_torch/csrc (one nvcc per source, in
      parallel) and, beside them, the native G2P library (g++);
   2. each decode kernel (K1-K4) against its plain PyTorch version on the card
-     at the main path's shapes, with times (CUDA events, median of 50 after
-     warm-up, L2 flushed before each launch by writing 256 MB), the least time
-     the card could take, and a PyTorch library call of the same function as a
-     yardstick; every kernel but K5/K6 and its yardstick are timed again
-     after a flush that reads the same 256 MB (K5), which leaves clean lines
-     in the L2; K3, K3s and K4 give bit-equal outputs on two calls;
+     at the main path's shapes and the hybrid's (Mamba in_proj 2048 -> 8512,
+     out_proj 4096 -> 2048, the Mamba layers' MLP of F 4096), with times (CUDA
+     events, median of 50 after warm-up, L2 flushed before each launch by
+     writing 256 MB), the least time the card could take, and a PyTorch
+     library call of the same function as a yardstick; every kernel but K5/K6
+     and its yardstick are timed again after a flush that reads the same
+     256 MB (K5), which leaves clean lines in the L2; K3, K3s and K4 give
+     bit-equal outputs on two calls;
   3. the streaming probes K5/K6: one int8 [16384, 8192] array summed once by
      each (their own path, launch counts set to 0 before it and checked after
      it), both held exactly to the plain version and torch.sum, with times and
      the achieved rate beside the 3.35 TB/s every bound assumes;
-  4. a 2-layer model at full width (d 2048), int8 and then int4, on the card
-     in bf16 with the kernels against the same weights on the CPU in f32 with
-     the plain versions: prefill + 8 teacher-forced decode steps, logits
-     compared, and a short DAC decode compared the same way;
+  4. 2-layer models at full width (d 2048): the transformer, and the hybrid
+     with one Mamba and one attention layer, each int8 and then int4, on the
+     card in bf16 with the kernels against the same weights on the CPU in f32
+     with the plain versions: prefill + 8 teacher-forced decode steps, logits
+     compared; a 2-layer transformer written as a reference checkpoint and
+     read back by from_local, params bit-equal; a short DAC decode compared;
   5. the main path: the flagship transformer (24 layers), int8 weights and KV,
      860 frames (10 s) at cfg 2.0 and min-p 0.1, then the full-size DAC to
      int16 PCM; run twice, the second run timed with every kernel's launch
@@ -38,16 +42,25 @@ Phases; any failure exits non-zero:
      warm-up request, then one on new file names (cache misses) with every
      launch count set to 0 before it and checked after it; then the speaker
      tower (2 s clip) and the DAC encoder (1 s clip) card against CPU in f32;
-  8. a 32-frame generate under torch.profiler on phase 5's int8 model, then
-     on phase 6's int4 model: device time (the kernels' sum, and the union of
-     their intervals) and kernel launches per decode step against the step's
-     wall time from phase 5 or 6, the top kernels, and
-     each kernel wrapper's device kernels per call as designed (K1, K2 and K4
-     one, K3 two: fc1 + gate, then fc2).
+  8. the full-size hybrid (Zonos-v0.1-hybrid: 24 layers, attention at 3, 9, 15
+     and 21), seeded bf16 weights written as a reference checkpoint (bytes and
+     seconds) into a temporary directory, read back by from_local (seconds)
+     bit-equal, quantized to int8, and English text through make_cond_dict
+     (the hybrid's conditioners), prepare_conditioning and generate_audio to
+     430 frames of int16 PCM: a 128-frame warm-up run, then one with every
+     launch count set to 0 before it and checked after it (per step K1 49,
+     K3 24, K2 4);
+  9. a 32-frame generate under torch.profiler on phase 5's int8 model, then
+     on phase 6's int4 model, then on phase 8's hybrid: device time (the
+     kernels' sum, and the union of their intervals) and kernel launches per
+     decode step against the step's wall time from phase 5, 6 or 8, the top
+     kernels, and each kernel wrapper's device kernels per call as designed
+     (K1, K2 and K4 one, K3 two: fc1 + gate, then fc2).
 With ``--parts``, only the device kernels of one K3, K3s or K4 call at the
 main path's shapes, each with its device time under torch.profiler.
-Prints one line per kernel check, a ``{"kernels": [...]}`` line, the card's
-name and power limit, and last ``{"ok": true, "device": {...}}``.
+Prints one line per kernel check, a ``{"kernels": [...]}`` line (``launches``
+from phase 5, or phase 6 for K4, and ``launches_by_path`` for phases 5, 6
+and 8), the card's name and power limit, and last ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -118,6 +131,47 @@ def _fail(msg: str) -> None:
 # Phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
+# The hybrid's decode shapes (zonos_v01_hybrid_config): Mamba in_proj
+# 2048 -> 8512 and out_proj 4096 -> 2048, and the Mamba layers' MLP of F 4096
+# (int4: its fc1 2048 -> 8192 and fc2 4096 -> 2048).
+HYBRID_K1 = ((2048, 8512), (4096, 2048))
+HYBRID_K4 = ((2048, 8512), (4096, 2048), (2048, 8192))
+HYBRID_F = 4096
+
+
+def _k1_case(M, gen, flush, read_flush, b, k, n, pad_rows16, quantize_int8, tag=""):
+    x = torch.randn((b, k), generator=gen, device="cuda").to(torch.bfloat16)
+    w = quantize_int8(torch.randn((k, n), generator=gen, device="cuda") / k ** 0.5)
+    w["q"] = pad_rows16(w["q"])
+    if not M.int8_vector_path(w["q"]):
+        _fail(f"K1 B={b} {k}->{n}: the weight does not take the TMA path")
+    y = M.int8_matmul(x, w["q"], w["s"])
+    ref = M.int8_matmul_plain(x, w["q"], w["s"])
+    torch.cuda.synchronize()
+    err = (y - ref).abs()
+    # Same exact products (bf16 x int8 in f32), only the order of the f32
+    # sums differs: rtol 1e-3, atol 1e-3 of the output's largest value.
+    tol = 1e-3 * ref.abs() + 1e-3 * ref.abs().max()
+    if not bool((err <= tol).all()) or not torch.isfinite(y).all():
+        _fail(f"K1 int8_matmul B={b} {k}->{n}: max err {err.max().item():.3e}")
+    w_bf16 = (w["q"].float() * w["s"]).to(torch.bfloat16)
+    kernel = lambda: M.int8_matmul(x, w["q"], w["s"])  # noqa: E731
+    library = lambda: torch.matmul(x, w_bf16)  # noqa: E731
+    row = {
+        "case": f"{tag}B={b} {k}->{n}", "max_abs_err": err.max().item(),
+        "cluster": M.int8_matmul_plan(b, k, n, sms=M._sm_count(x.device)).cluster,
+        "ms": _time_ms(kernel, flush),
+        "plain_ms": _time_ms(lambda: M.int8_matmul_plain(x, w["q"], w["s"]), flush),
+        # yardstick: a bf16 matmul against the pre-dequantized weight (twice the weight bytes)
+        "library_ms": _time_ms(library, flush),
+        "ms_read_flush": _time_ms(kernel, read_flush),
+        "library_ms_read_flush": _time_ms(library, read_flush),
+    }
+    row["bound_ms"], row["bound_by"] = _bound_ms(k * n + b * k * 2 + n * 4 + b * n * 4, 2 * b * k * n)
+    print("K1", json.dumps(row), flush=True)
+    return row
+
+
 def _k1_cases(gen, flush, read_flush):
     from zonos_tpu_torch.ops import cuda_matmul as M
     from zonos_tpu_torch.ops.quant import pad_rows16, quantize_int8
@@ -126,36 +180,10 @@ def _k1_cases(gen, flush, read_flush):
     for b in (2, 16):
         # in_proj, out_proj, and the int8 heads in the port's layout (rows padded to 16 bytes)
         for k, n in ((2048, 3072), (2048, 2048), (2048, 9225)):
-            x = torch.randn((b, k), generator=gen, device="cuda").to(torch.bfloat16)
-            w = quantize_int8(torch.randn((k, n), generator=gen, device="cuda") / k ** 0.5)
-            w["q"] = pad_rows16(w["q"])
-            if not M.int8_vector_path(w["q"]):
-                _fail(f"K1 B={b} {k}->{n}: the weight does not take the TMA path")
-            y = M.int8_matmul(x, w["q"], w["s"])
-            ref = M.int8_matmul_plain(x, w["q"], w["s"])
-            torch.cuda.synchronize()
-            err = (y - ref).abs()
-            # Same exact products (bf16 x int8 in f32), only the order of the f32
-            # sums differs: rtol 1e-3, atol 1e-3 of the output's largest value.
-            tol = 1e-3 * ref.abs() + 1e-3 * ref.abs().max()
-            if not bool((err <= tol).all()) or not torch.isfinite(y).all():
-                _fail(f"K1 int8_matmul B={b} {k}->{n}: max err {err.max().item():.3e}")
-            w_bf16 = (w["q"].float() * w["s"]).to(torch.bfloat16)
-            kernel = lambda: M.int8_matmul(x, w["q"], w["s"])  # noqa: E731
-            library = lambda: torch.matmul(x, w_bf16)  # noqa: E731
-            row = {
-                "case": f"B={b} {k}->{n}", "max_abs_err": err.max().item(),
-                "cluster": M.int8_matmul_plan(b, k, n, sms=M._sm_count(x.device)).cluster,
-                "ms": _time_ms(kernel, flush),
-                "plain_ms": _time_ms(lambda: M.int8_matmul_plain(x, w["q"], w["s"]), flush),
-                # yardstick: a bf16 matmul against the pre-dequantized weight (twice the weight bytes)
-                "library_ms": _time_ms(library, flush),
-                "ms_read_flush": _time_ms(kernel, read_flush),
-                "library_ms_read_flush": _time_ms(library, read_flush),
-            }
-            row["bound_ms"], row["bound_by"] = _bound_ms(k * n + b * k * 2 + n * 4 + b * n * 4, 2 * b * k * n)
-            rows.append(row)
-            print("K1", json.dumps(row), flush=True)
+            rows.append(_k1_case(M, gen, flush, read_flush, b, k, n, pad_rows16, quantize_int8))
+    # the hybrid's Mamba in_proj (N 8512: 33 tiles of 256 and a 64-column tail) and out_proj
+    for k, n in HYBRID_K1:
+        rows.append(_k1_case(M, gen, flush, read_flush, 2, k, n, pad_rows16, quantize_int8, "hybrid "))
     # The scalar variant (a row stride that is not a multiple of 16 bytes, which
     # no main-path weight has): the heads unpadded, checked only.
     x = torch.randn((3, 2048), generator=gen, device="cuda").to(torch.bfloat16)
@@ -242,7 +270,14 @@ def _k3_cases(gen, flush, read_flush):
     from zonos_tpu_torch.ops import cuda_matmul as M
     from zonos_tpu_torch.ops.quant import quantize_int8
 
-    b, d, f = 2, 2048, 8192
+    rows = []
+    # the flagship MLP (K3 and K3s), then the hybrid's Mamba-layer MLP (K3)
+    for b, d, f, names in ((2, 2048, 8192, ("K3", "K3s")), (2, 2048, HYBRID_F, ("K3 hybrid",))):
+        rows += _k3_shape(M, quantize_int8, gen, flush, read_flush, b, d, f, names)
+    return rows
+
+
+def _k3_shape(M, quantize_int8, gen, flush, read_flush, b, d, f, names):
     x = torch.randn((b, d), generator=gen, device="cuda").to(torch.bfloat16)
     w1 = quantize_int8(torch.randn((d, 2 * f), generator=gen, device="cuda") / d ** 0.5)
     w2 = quantize_int8(torch.randn((f, d), generator=gen, device="cuda") / f ** 0.5)
@@ -263,7 +298,7 @@ def _k3_cases(gen, flush, read_flush):
     nbytes = d * 2 * f + f * d + (2 * f + d) * 4 + b * d * 2 + b * d * 4
     ops = 2 * b * d * 2 * f + 2 * b * f * d
     rows = []
-    for name, fn in (("K3", fused), ("K3s", split)):
+    for name, fn in zip(names, (fused, split)):
         out = fn()
         again = fn()
         torch.cuda.synchronize()
@@ -275,14 +310,14 @@ def _k3_cases(gen, flush, read_flush):
         if not torch.equal(out, again):  # sums in a fixed order
             _fail(f"{name}: two calls on the same inputs differ")
         row = {
-            "case": f"B={b} D={d} F={f}", "max_abs_err": err.max().item(),
+            "case": f"{name}: B={b} D={d} F={f}", "max_abs_err": err.max().item(),
             "ms": _time_ms(fn, flush), "plain_ms": _time_ms(plain, flush),
             "library_ms": _time_ms(library, flush),
             "ms_read_flush": _time_ms(fn, read_flush), "library_ms_read_flush": _time_ms(library, read_flush),
         }
         row["bound_ms"], row["bound_by"] = _bound_ms(nbytes, ops)
         rows.append((name, row))
-        print(name, json.dumps(row), flush=True)
+        print(name.split()[0], json.dumps(row), flush=True)
     return rows
 
 
@@ -293,7 +328,10 @@ def _k4_cases(gen, flush, read_flush):
     rows = []
     # in_proj, out_proj, fc1 and fc2 of a flagship layer at the decode batch,
     # and in_proj at the largest batch K4 takes
-    for b, k, n in ((2, 2048, 3072), (2, 2048, 2048), (2, 2048, 16384), (2, 8192, 2048), (16, 2048, 3072)):
+    # then the hybrid's Mamba in_proj, out_proj (and fc2) and its Mamba-layer fc1
+    shapes = ((2, 2048, 3072), (2, 2048, 2048), (2, 2048, 16384), (2, 8192, 2048), (16, 2048, 3072),
+              *((2, k, n) for k, n in HYBRID_K4))
+    for i, (b, k, n) in enumerate(shapes):
         x = torch.randn((b, k), generator=gen, device="cuda").to(torch.bfloat16)
         w = quantize_int4(torch.randn((k, n), generator=gen, device="cuda") / k ** 0.5)
         y = M.int4_matmul(x, w["q4"], w["s4"])
@@ -313,7 +351,7 @@ def _k4_cases(gen, flush, read_flush):
         kernel = lambda: M.int4_matmul(x, w["q4"], w["s4"])  # noqa: E731
         library = lambda: torch.matmul(x, w_bf16)  # noqa: E731
         row = {
-            "case": f"B={b} {k}->{n}", "max_abs_err": err.max().item(),
+            "case": f"{'hybrid ' if i >= 5 else ''}B={b} {k}->{n}", "max_abs_err": err.max().item(),
             "cluster": M.int4_matmul_plan(b, k, n, 128, sms=M._sm_count(x.device)).cluster,
             "ms": _time_ms(kernel, flush),
             "plain_ms": _time_ms(lambda: M.int4_matmul_plain(x, w["q4"], w["s4"]), flush),
@@ -432,16 +470,18 @@ def _k56_cases(gen, flush):
 # Phase 4: two full-width layers, card (bf16, kernels) vs CPU (f32, plain)
 # ---------------------------------------------------------------------------
 
-def _phase_small_model(bits: int):
+def _phase_small_model(bits: int, hybrid: bool = False):
     from zonos_tpu_torch.bridge import params_from_jax
-    from zonos_tpu_torch.config import zonos_v01_transformer_config
+    from zonos_tpu_torch.config import zonos_v01_hybrid_config, zonos_v01_transformer_config
     from zonos_tpu_torch.models.backbone import backbone_forward, create_cache
     from zonos_tpu_torch.models.zonos import Zonos
     from zonos_tpu_torch.ops.sampling import SamplingParams
     from zonos_tpu_torch.runtime.generate import GenerateStatics, _decode_logits, apply_heads, embed_codes
 
-    full = zonos_v01_transformer_config()
-    cfg = dataclasses.replace(full, backbone=dataclasses.replace(full.backbone, n_layer=2, attn_layer_idx=(0, 1)))
+    # two layers at full width: both attention, or (hybrid) one Mamba layer and one attention layer
+    full = zonos_v01_hybrid_config() if hybrid else zonos_v01_transformer_config()
+    cfg = dataclasses.replace(full, backbone=dataclasses.replace(full.backbone, n_layer=2,
+                                                                 attn_layer_idx=(1,) if hybrid else (0, 1)))
     cpu = Zonos.from_config(cfg, seed=1, dtype=torch.float32, device="cpu").quantize(bits=bits)
     card_params = params_from_jax(_to_numpy(cpu.params), device="cuda", dtype=torch.bfloat16)
     statics = GenerateStatics(cfg=cfg, sampling=SamplingParams(temperature=0.0), prefill_len=128,
@@ -469,11 +509,81 @@ def _phase_small_model(bits: int):
             lg_cpu, _ = _decode_logits(cpu.params, statics, frame, cache_cpu, 128 + t, pad_cpu, 2.0)
             lg_gpu, _ = _decode_logits(card_params, statics, frame.cuda(), cache_gpu, 128 + t, pad_gpu, 2.0)
             corrs.append(_corr(lg_gpu, lg_cpu))
-    print(f"phase4 int{bits} logits corr (prefill, 8 decode steps):", json.dumps([round(c, 6) for c in corrs]),
+    label = f"{'hybrid ' if hybrid else ''}int{bits}"
+    print(f"phase4 {label} logits corr (prefill, 8 decode steps):", json.dumps([round(c, 6) for c in corrs]),
           flush=True)
-    # bf16 activations and KV on the card against f32 on the CPU: corr > 0.999
+    # bf16 activations, KV (and SSD states) on the card against f32 on the CPU: corr > 0.999
     if min(corrs) <= 0.999:
-        _fail(f"phase 4: 2-layer int{bits} card/CPU logits correlation {min(corrs):.6f} <= 0.999")
+        _fail(f"phase 4: 2-layer {label} card/CPU logits correlation {min(corrs):.6f} <= 0.999")
+
+
+REF_EMB_ROWS = 1026  # the embedding rows a reference checkpoint holds (1032 in memory, padded with zeros)
+
+
+def _checkpoint_round_trip(model, label: str):
+    """Write ``model`` with ``save_reference_checkpoint`` into a temporary
+    directory (removed whatever happens), load it back with ``from_local``
+    on the card, and require every param bit-equal (the embeddings on their
+    1026 reference rows, the padding rows zero). Returns (the loaded model,
+    sizes and times)."""
+    from zonos_tpu_torch.models.zonos import Zonos
+    from zonos_tpu_torch.utils.export import save_reference_checkpoint
+
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        wpath, cpath = save_reference_checkpoint(tmp, model.params, model.config)
+        write_s = time.perf_counter() - t
+        t = time.perf_counter()
+        loaded = Zonos.from_local(cpath, wpath, dtype=model.dtype, device="cuda")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t
+        nbytes = os.path.getsize(wpath)
+    bad = _tree_diff(model.params, loaded.params)
+    if loaded.config != model.config or bad:
+        _fail(f"{label}: the checkpoint read back differs: config equal {loaded.config == model.config}, "
+              f"params {bad[:5]}")
+    info = {"bytes": nbytes, "write_s": write_s, "load_s": load_s,
+            "params": sum(t.numel() for t in _leaves(model.params))}
+    print(f"{label} checkpoint write/load, params bit-equal:", json.dumps(info), flush=True)
+    return loaded, info
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    if isinstance(tree, list):
+        return [x for v in tree for x in _leaves(v)]
+    return [] if tree is None else [tree]
+
+
+def _tree_diff(a, b, path="") -> list:
+    """Paths where two params trees differ (dtype, shape or any bit)."""
+    if isinstance(a, dict):
+        if set(a) != set(b):
+            return [f"{path}: keys {sorted(set(a) ^ set(b))}"]
+        return [d for k in a for d in _tree_diff(a[k], b[k], f"{path}/{k}")]
+    if isinstance(a, list):
+        return [d for i, (u, v) in enumerate(zip(a, b)) for d in _tree_diff(u, v, f"{path}[{i}]")]
+    if a is None or b is None:
+        return [] if a is None and b is None else [path]
+    if path == "/embeddings":
+        if b[:, REF_EMB_ROWS:].any():
+            return [f"{path}: padding rows not zero"]
+        a, b = a[:, :REF_EMB_ROWS], b[:, :REF_EMB_ROWS]
+    return [] if a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b) else [path]
+
+
+def _phase_small_checkpoint():
+    """A 2-layer full-width transformer (bf16, seeded) through the reference
+    checkpoint and back on the card."""
+    from zonos_tpu_torch.config import zonos_v01_transformer_config
+    from zonos_tpu_torch.models.zonos import Zonos
+
+    full = zonos_v01_transformer_config()
+    cfg = dataclasses.replace(full, backbone=dataclasses.replace(full.backbone, n_layer=2, attn_layer_idx=(0, 1)))
+    _checkpoint_round_trip(Zonos.from_config(cfg, seed=2, dtype=torch.bfloat16, device="cuda"),
+                           "phase4 2-layer transformer")
 
 
 def _phase_small_dac():
@@ -497,6 +607,8 @@ def _to_numpy(tree):
         return {k: _to_numpy(v) for k, v in tree.items()}
     if isinstance(tree, list):
         return [_to_numpy(v) for v in tree]
+    if tree is None:
+        return None
     return (tree.float() if tree.dtype == torch.bfloat16 else tree).cpu().numpy()
 
 
@@ -817,7 +929,92 @@ def _phase_voice_clone(card: str, model):
 
 
 # ---------------------------------------------------------------------------
-# Phase 8: the profiler, last
+# Phase 8: the full-size hybrid, from a checkpoint on disk
+# ---------------------------------------------------------------------------
+
+HYBRID_TEXT = "Across the frozen lake, the lanterns of the village flickered as the evening bells began to ring."
+
+
+def _phase_hybrid(card: str):
+    """Zonos-v0.1-hybrid at full size (seeded bf16 weights) written as a
+    reference checkpoint, read back by ``from_local`` bit-equal, quantized to
+    int8 and driven text → ``prepare_conditioning`` (the hybrid's
+    conditioners) → ``generate_audio`` to 430 frames of int16 PCM: a 128-frame
+    warm-up run, then one with every launch count set to 0 before it and
+    read after."""
+    from zonos_tpu_torch.conditioning.cond_dict import make_cond_dict
+    from zonos_tpu_torch.config import zonos_v01_hybrid_config
+    from zonos_tpu_torch.models.hybrid import layer_groups
+    from zonos_tpu_torch.models.zonos import Zonos
+    from zonos_tpu_torch.ops import cuda_attention as A
+    from zonos_tpu_torch.ops import cuda_matmul as M
+    from zonos_tpu_torch.ops.sampling import SamplingParams
+
+    cfg = zonos_v01_hybrid_config()
+    groups = layer_groups(cfg.backbone)
+    n_attn = sum(kind == "attn" for kind, _ in groups)
+    n_mamba = cfg.backbone.n_layer - n_attn
+    t0 = time.perf_counter()
+    seeded = Zonos.from_config(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    loaded, ckpt = _checkpoint_round_trip(seeded, "phase8 hybrid")
+    del seeded
+    model = loaded.quantize()
+    del loaded
+    speaker = np.random.default_rng(5).normal(size=(1, 1, 128)).astype(np.float32)
+    kernels = (M.int8_matmul, A.attn_core_int8, M.fused_mlp_int8, M.fused_mlp_int8_split, M.int4_matmul)
+
+    def run(seed, frames=FACADE_FRAMES):
+        stats = {}
+        t = time.perf_counter()
+        wav, lengths = model.generate_audio(cond, max_new_tokens=frames, cfg_scale=2.0,
+                                            sampling_params=SamplingParams(min_p=0.1), seed=seed, forbid_eos=True,
+                                            pcm_int16=True, stats=stats)
+        return wav, lengths, stats, time.perf_counter() - t
+
+    with torch.no_grad():
+        cond = model.prepare_conditioning(make_cond_dict(text=HYBRID_TEXT, language="en-us", speaker=speaker),
+                                          cfg_scale=2.0)
+        run(1, frames=128)  # warm-up, short: the run is past ~600 s of command time on slower hosts
+        torch.cuda.reset_peak_memory_stats()
+        for k in kernels:
+            k.launches = 0
+        wav, lengths, stats, t_total = run(2)
+        counts = {k.__name__: k.launches for k in kernels}
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    steps = stats["decode_steps"]
+    # per decode step: Mamba and attention in_proj and out_proj and the heads on
+    # K1, every layer's MLP on K3, K2 in the attention layers; the prefill's
+    # last-position heads on K1
+    expected = {"int8_matmul": steps * (2 * cfg.backbone.n_layer + 1) + 1, "attn_core_int8": steps * n_attn,
+                "fused_mlp_int8": steps * cfg.backbone.n_layer, "fused_mlp_int8_split": 0, "int4_matmul": 0}
+    print("phase8 launches:", json.dumps(counts), "expected:", json.dumps(expected),
+          "per step:", json.dumps({k: v / steps for k, v in counts.items()}), flush=True)
+    if counts != expected or (n_mamba, n_attn) != (20, 4):
+        _fail(f"phase 8: launch counts {counts} != expected {expected}")
+    hop, sr = model.autoencoder.config.hop_length, model.autoencoder.sampling_rate
+    if wav.shape != (1, FACADE_FRAMES * hop) or wav.dtype != np.int16 or list(lengths) != [FACADE_FRAMES]:
+        _fail(f"phase 8: PCM shape {wav.shape} dtype {wav.dtype} lengths {lengths}")
+    rms = float(np.sqrt(np.mean(wav.astype(np.float64) ** 2)))
+    if not rms > 0:
+        _fail("phase 8: silent PCM")
+    audio_s = FACADE_FRAMES * hop / sr
+    result = {
+        "card": card, "frames": FACADE_FRAMES, "audio_s": audio_s, "decode_steps": steps,
+        "init_s": init_s, "checkpoint_bytes": ckpt["bytes"], "checkpoint_write_s": ckpt["write_s"],
+        "checkpoint_load_s": ckpt["load_s"], "params": ckpt["params"],
+        "prefill_ms": stats["prefill_s"] * 1e3, "decode_ms_per_frame": stats["segments_s"] * 1e3 / steps,
+        "dac_host_ms": stats["dac_s"] * 1e3, "generate_audio_s": t_total, "rtf": audio_s / t_total,
+        "pcm_rms": rms, "peak_mem_gb": peak_gb,
+    }
+    print("phase8 hybrid int8 path:", json.dumps(result), flush=True)
+    return counts, model, cond, result
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: the profiler, last
 # ---------------------------------------------------------------------------
 
 # Device kernels one wrapper call launches, by design (K3: fc1 + gate, then fc2).
@@ -884,20 +1081,20 @@ def _phase_profile(label, model, cond, step_ms):
     kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
     device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     if device_ms == 0:
-        print(f"phase8 {label} profile: device time not measured (the profiler saw no kernels)", flush=True)
+        print(f"phase9 {label} profile: device time not measured (the profiler saw no kernels)", flush=True)
         return
     seen = _device_kernels(kernels)
     designed = {name: DESIGNED_KERNELS[name] * n for name, n in calls.items()}
     per_call = {name: seen[name] for name in designed}
     # K1, K2 and K4 one device kernel per call, K3 two (fc1 + gate, fc2): no other pass
     if per_call != designed or seen["k3_fc1"] != seen["k3_fc2"]:
-        _fail(f"phase 8 {label}: device kernels {seen} != designed {designed} for wrapper calls {calls}")
+        _fail(f"phase 9 {label}: device kernels {seen} != designed {designed} for wrapper calls {calls}")
     steps = stats["decode_steps"]
     launches = sum(e.count for e in kernels)
     per_step = device_ms / (steps + 1)  # the prefill counted as one more step
     top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:10]
     busy_per_step = _busy_ms(prof) / (steps + 1)
-    print(f"phase8 {label} profile:", json.dumps({
+    print(f"phase9 {label} profile:", json.dumps({
         "generate_frames": 32, "decode_steps": steps, "device_ms_total": device_ms,
         "kernel_launches": launches, "kernel_launches_per_step": launches / (steps + 1),
         "wrapper_calls": calls, "device_kernels": seen, "device_ms_per_step": per_step,
@@ -948,16 +1145,22 @@ def main() -> int:
     probe_counts, k56 = _k56_cases(gen, flush)
     del buf, flush, read_flush
 
-    _phase_small_model(bits=8)
-    _phase_small_model(bits=4)
+    for hybrid in (False, True):
+        _phase_small_model(bits=8, hybrid=hybrid)
+        _phase_small_model(bits=4, hybrid=hybrid)
+    _phase_small_checkpoint()
     _phase_small_dac()
     counts, model, cond, result = _phase_main_path(card)
     facade_counts, model4, cond4, result4 = _phase_facade_int4(card)
     _phase_voice_clone(card, model)
+    hybrid_counts, model_h, cond_h, result_h = _phase_hybrid(card)
     # last: once torch.profiler has run, host cost per op stays raised in the process
     _phase_profile("int8", model, cond, result["decode_ms_per_frame"])
     _phase_profile("int4", model4, cond4, result4["decode_ms_per_frame"])
-    del model, model4
+    _phase_profile("hybrid int8", model_h, cond_h, result_h["decode_ms_per_frame"])
+    del model, model4, model_h
+
+    by_path = {"int8": counts, "int4": facade_counts, "hybrid_int8": hybrid_counts}
 
     def entry(name, source, replaces, rows, launches):
         main_row = rows[0]
@@ -966,6 +1169,7 @@ def main() -> int:
             "launches": launches, "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"], "bound_ms": main_row["bound_ms"],
             "bound_by": main_row["bound_by"], "library_ms": main_row["library_ms"],
+            "launches_by_path": {path: c[name] for path, c in by_path.items() if name in c},
         }
 
     kernels = [
@@ -974,7 +1178,7 @@ def main() -> int:
         entry("attn_core_int8", "zonos_tpu_torch/csrc/attn_core_int8.cu", "zonos_tpu/ops/pallas_attention.py:98",
               k2, counts["attn_core_int8"]),
         entry("fused_mlp_int8", "zonos_tpu_torch/csrc/fused_mlp_int8.cu", "zonos_tpu/ops/pallas_matmul.py:200",
-              [k3["K3"]], counts["fused_mlp_int8"]),
+              [k3["K3"], k3["K3 hybrid"]], counts["fused_mlp_int8"]),
         entry("fused_mlp_int8_split", "zonos_tpu_torch/csrc/fused_mlp_int8.cu", "zonos_tpu/ops/pallas_matmul.py:250",
               [k3["K3s"]], counts["fused_mlp_int8_split"]),
         entry("int4_matmul", "zonos_tpu_torch/csrc/int4_matmul.cu", "zonos_tpu/ops/pallas_matmul.py:120",

@@ -219,3 +219,69 @@ def test_bridged_heads_padded_greedy_codes_match_jax(bridged_int8):
                       sampling_params=SamplingParams(temperature=0.0), seed=0, dtype=torch.float32, kv_int8=True,
                       device="cpu")
     np.testing.assert_array_equal(np.asarray(got), np.asarray(ref))
+
+
+# The hybrid's decode shapes (Zonos-v0.1-hybrid: Mamba in_proj 2048 → 8512,
+# out_proj 4096 → 2048, Mamba-layer MLP of F 4096): N = 8512 leaves a
+# 64-column tail after 33 tiles of 256.
+HYBRID_K1 = [(2048, 8512), (4096, 2048)]
+HYBRID_K4 = [(2048, 8512), (4096, 2048), (2048, 8192)]  # in_proj, out_proj and fc2, fc1 at F 4096
+
+
+def _tile_columns(n, tile, cluster, per):
+    """(first column, count) each rank of each tile reduces."""
+    return [(t * tile + r * per, max(0, min(per, tile - r * per, n - t * tile - r * per)))
+            for t in range(-(-n // tile)) for r in range(cluster)]
+
+
+@pytest.mark.parametrize("k,n", HYBRID_K1)
+def test_k1_plan_at_the_hybrid_shapes(k, n):
+    for b in range(1, 17):
+        plan = TM.int8_matmul_plan(b, k, n)
+        assert 1 <= plan.cluster <= TM.MAX_CLUSTER and plan.smem_bytes <= MAX_SMEM, (b, plan)
+        assert _covered_once([p for rank in TM.int8_rank_stages(k, plan) for p in rank], 0, k)
+        cols = _tile_columns(n, TM.K1_COLS, plan.cluster, plan.per)
+        assert _covered_once(cols, 0, n)
+    if n % TM.K1_COLS:  # the tail tile: its last rank with columns ends at n
+        tail = [c for c in _tile_columns(n, TM.K1_COLS, TM.int8_matmul_plan(2, k, n).cluster,
+                                         TM.int8_matmul_plan(2, k, n).per) if c[0] >= (n // TM.K1_COLS) * 256]
+        assert sum(count for _, count in tail) == n % TM.K1_COLS == 64
+
+
+@pytest.mark.parametrize("k,n", HYBRID_K4)
+def test_k4_plan_at_the_hybrid_shapes(k, n):
+    assert n % 16 == 0  # K4's tensor map of the packed [K/2, N] view
+    for b in range(1, 17):
+        plan = TM.int4_matmul_plan(b, k, n, 128)
+        assert 1 <= plan.cluster <= TM.MAX_CLUSTER and plan.smem_bytes <= MAX_SMEM, (b, plan)
+        assert _covered_once(TM.int4_rank_groups(k, 128, plan), 0, k // 128)
+        assert _covered_once(_tile_columns(n, TM.K4_COLS, plan.cluster, plan.per), 0, n)
+        assert plan.cluster * -(-n // TM.K4_COLS) <= TM.H100_SMS or plan.cluster == 1
+
+
+def test_k3_plan_at_the_hybrid_mamba_mlp():
+    """D 2048, F 4096: every F column and D row once, fc2 over the 4096 rows
+    of h, within 227 KB for every B from 1 to 16."""
+    d, f = 2048, 4096
+    for b in range(1, 17):
+        plan = TM.fused_mlp_plan(b, d, f, d)
+        assert max(plan.fc1_smem_bytes, plan.fc2.smem_bytes) <= MAX_SMEM, (b, plan)
+        assert _covered_once(TM.fused_mlp_columns(f, plan), 0, f)
+        assert _covered_once([p for rank in TM.int8_rank_stages(f, plan.fc2) for p in rank], 0, f)
+        assert 1 <= plan.fc2.cluster <= TM.MAX_CLUSTER
+    assert TM.fused_mlp_plan(2, d, f, d).blocks == 64
+
+
+def test_stacked_layer_views_stay_16_byte_aligned():
+    """A layer of a stacked Mamba run is a view into the run's buffer: its
+    base must stay 16-byte aligned for the kernels' tensor maps, int8 and
+    packed int4 (the hybrid's runs are up to 5 layers long)."""
+    from zonos_tpu_torch.ops.quant import quantize_int4
+
+    for k, n in ((2048, 8512), (4096, 2048)):
+        q = torch.zeros((5, k, n), dtype=torch.int8)
+        assert all(q[i].data_ptr() % 16 == 0 and q[i].stride(0) % 16 == 0 for i in range(5))
+        w4 = quantize_int4(torch.zeros((2, k, n)))
+        assert w4["q4"].shape == (2, k // 128, 64, n)
+        assert all(w4["q4"][i].data_ptr() % 16 == 0 and w4["q4"][i].is_contiguous() for i in range(2))
+        assert all(w4["s4"][i].data_ptr() % 16 == 0 for i in range(2))

@@ -3,10 +3,11 @@
 The input is a nested dict of numpy arrays (e.g. ``jax.tree.map(np.asarray,
 params)``); the output holds torch tensors on one device. Layouts are kept:
 layer-stacked ``[L, ...]`` leaves and ``{"q", "s"}`` int8 dicts pass through
-unchanged, and so do ``{"q4", "s4"}`` int4 dicts and the
-``prefix_conditioner`` subtree. Only the DAC's and the speaker tower's
-convolution and linear weights change layout, to PyTorch's. This module
-imports no JAX.
+unchanged, and so do ``{"q4", "s4"}`` int4 dicts, the ``prefix_conditioner``
+subtree and the hybrid's ``groups`` (a list here; its stacked Mamba runs keep
+their leading run axis and its absent MLPs and biases stay None). Only the
+DAC's and the speaker tower's convolution and linear weights change layout,
+to PyTorch's. This module imports no JAX.
 """
 
 from __future__ import annotations
@@ -17,8 +18,9 @@ import torch
 from zonos_tpu_torch.ops.quant import pad_rows16
 
 # Float leaves the JAX package keeps in f32 whatever the model dtype: the
-# int8 and int4 quant scales and the Fourier conditioners' projection.
-F32_KEYS = frozenset({"s", "s4", "fourier_weight"})
+# int8 and int4 quant scales, the Fourier conditioners' projection and the
+# Mamba2 mixers' SSD scalars.
+F32_KEYS = frozenset({"s", "s4", "fourier_weight", "A_log", "D", "dt_bias"})
 
 
 def _tensor(a, device, dtype, key: str | None) -> torch.Tensor:
@@ -46,7 +48,7 @@ def params_from_jax(tree, device="cpu", dtype=torch.float32, _key: str | None = 
         return out
     if isinstance(tree, (list, tuple)):
         return [params_from_jax(v, device, dtype, _key) for v in tree]
-    return _tensor(tree, device, dtype, _key)
+    return None if tree is None else _tensor(tree, device, dtype, _key)
 
 
 def _conv(p: dict, device, dtype) -> dict:
@@ -142,3 +144,18 @@ def speaker_params_from_jax(tree: dict, device="cpu") -> dict:
                 "att_conv2": linear(asp["att_conv2"])},
         "bottleneck": linear(tree["bottleneck"]),
     }
+
+
+def hybrid_cache_from_jax(cache, device="cpu"):
+    """A JAX ``HybridCache`` (or any object with its fields, numpy values) →
+    the port's ``models.hybrid.HybridCache``: the same layouts (head-major
+    int8 KV with f32 scales, stacked [R, ...] conv and SSD states), dtypes
+    kept; a ``[]`` scale tuple (a bf16 cache) becomes None per group."""
+    from zonos_tpu_torch.models.hybrid import HybridCache
+
+    def conv(seq):
+        return [None if a is None else torch.from_numpy(np.array(a, copy=True)).to(device) for a in seq]
+
+    n = len(cache.kv_k)
+    return HybridCache(kv_k=conv(cache.kv_k), kv_v=conv(cache.kv_v), conv=conv(cache.conv), ssm=conv(cache.ssm),
+                       kv_ks=conv(cache.kv_ks or [None] * n), kv_vs=conv(cache.kv_vs or [None] * n))

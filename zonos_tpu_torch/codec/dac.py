@@ -16,6 +16,7 @@ convolutions are plain ``torch.nn.functional`` calls: JAX leaves them to XLA.
 
 from __future__ import annotations
 
+import logging
 import math
 
 import numpy as np
@@ -25,6 +26,9 @@ import torch.nn.functional as F
 from zonos_tpu_torch import resolve_device
 from zonos_tpu_torch.audio.resample import resample_poly
 from zonos_tpu_torch.config import DACConfig
+
+logger = logging.getLogger("zonos_tpu_torch")
+HF_REPO_ID = "descript/dac_44khz"
 
 
 # ---------------------------------------------------------------------------
@@ -193,13 +197,94 @@ def init_dac_params(generator: torch.Generator, cfg: DACConfig = DACConfig(), dt
     return {"decoder": decoder, "encoder": encoder, "quantizer": quantizer}
 
 
+# ---------------------------------------------------------------------------
+# Pretrained weights: transformers' DacModel state dict
+# ---------------------------------------------------------------------------
+
+def _hf_conv_weight(sd, prefix: str) -> torch.Tensor:
+    """A conv's folded weight: ``weight`` as saved, or folded from a weight-norm
+    pair (``weight_g``/``weight_v``, or the parametrization's
+    ``original0``/``original1``) as torch's weight_norm computes it (dim 0)."""
+    for g, v in ((f"{prefix}.weight_g", f"{prefix}.weight_v"),
+                 (f"{prefix}.parametrizations.weight.original0", f"{prefix}.parametrizations.weight.original1")):
+        if g in sd and v in sd:
+            return torch._weight_norm(torch.as_tensor(sd[v]).float(), torch.as_tensor(sd[g]).float(), 0)
+    return torch.as_tensor(sd[f"{prefix}.weight"])
+
+
+def convert_hf_dac_state_dict(sd, cfg: DACConfig = DACConfig(), dtype=torch.float32, device="cpu") -> dict:
+    """A ``transformers.DacModel`` state dict (tensors or arrays) → the port's
+    params. Conv weights are already in PyTorch's layout ([Cout, Cin, K],
+    transposed convs [Cin, Cout, K]); weight-norm pairs are folded; the
+    quantizer's 1x1-conv projections become in_proj [n_q, hidden, d] and
+    out_proj [n_q, d, hidden]; snake α [1, C, 1] becomes [C]."""
+    def arr(x) -> torch.Tensor:
+        return torch.as_tensor(x).to(device=device, dtype=dtype)
+
+    def conv(prefix):
+        return {"w": arr(_hf_conv_weight(sd, prefix)), "b": arr(sd[f"{prefix}.bias"])}
+
+    def alpha(key):
+        return arr(sd[key]).reshape(-1)
+
+    def res(p):
+        return {"snake1": alpha(f"{p}.snake1.alpha"), "conv1": conv(f"{p}.conv1"),
+                "snake2": alpha(f"{p}.snake2.alpha"), "conv2": conv(f"{p}.conv2")}
+
+    decoder = {
+        "conv1": conv("decoder.conv1"),
+        "blocks": [{"snake1": alpha(f"decoder.block.{i}.snake1.alpha"), "conv_t": conv(f"decoder.block.{i}.conv_t1"),
+                    "res": [res(f"decoder.block.{i}.res_unit{r + 1}") for r in range(3)]}
+                   for i in range(len(cfg.upsampling_ratios))],
+        "snake_out": alpha("decoder.snake1.alpha"),
+        "conv2": conv("decoder.conv2"),
+    }
+    encoder = {
+        "conv1": conv("encoder.conv1"),
+        "blocks": [{"res": [res(f"encoder.block.{i}.res_unit{r + 1}") for r in range(3)],
+                    "snake1": alpha(f"encoder.block.{i}.snake1.alpha"), "conv": conv(f"encoder.block.{i}.conv1")}
+                   for i in range(len(cfg.downsampling_ratios))],
+        "snake_out": alpha("encoder.snake1.alpha"),
+        "conv2": conv("encoder.conv2"),
+    }
+    qs = [f"quantizer.quantizers.{i}" for i in range(cfg.n_codebooks)]
+    quantizer = {
+        "codebooks": torch.stack([arr(sd[f"{q}.codebook.weight"]) for q in qs]),
+        "in_proj_w": torch.stack([arr(_hf_conv_weight(sd, f"{q}.in_proj"))[:, :, 0].T for q in qs]),
+        "in_proj_b": torch.stack([arr(sd[f"{q}.in_proj.bias"]) for q in qs]),
+        "out_proj_w": torch.stack([arr(_hf_conv_weight(sd, f"{q}.out_proj"))[:, :, 0].T for q in qs]),
+        "out_proj_b": torch.stack([arr(sd[f"{q}.out_proj.bias"]) for q in qs]),
+    }
+    return {"decoder": decoder, "encoder": encoder, "quantizer": quantizer}
+
+
+def load_cached_dac(cfg: DACConfig = DACConfig(), device="cpu") -> dict | None:
+    """descript/dac_44khz's weights from the local hub cache (``utils.hub``),
+    converted, or None when the cache does not hold them. A file that is
+    there but cannot be read or converted raises."""
+    from zonos_tpu_torch.utils.hub import cached_snapshot
+    from zonos_tpu_torch.utils.safetensors_io import load_file
+
+    snap = cached_snapshot(HF_REPO_ID, ("model.safetensors",))
+    if snap is None:
+        return None
+    try:
+        return convert_hf_dac_state_dict(load_file(str(snap / "model.safetensors")), cfg, device=device)
+    except (KeyError, ValueError, RuntimeError) as e:
+        raise ValueError(f"{snap / 'model.safetensors'}: not a {HF_REPO_ID} checkpoint this codec reads ({e!r})") from e
+
+
 def _bucket(n: int, m: int) -> int:
     return max(m, ((n + m - 1) // m) * m)
 
 
 class DACAutoencoder:
     """Codec handle on one device: ``preprocess`` + ``encode`` (wav → codes, f32)
-    and ``decode`` (codes → 44.1 kHz PCM, padded to a frame bucket as in JAX)."""
+    and ``decode`` (codes → 44.1 kHz PCM, padded to a frame bucket as in JAX).
+
+    Without ``params`` it loads descript/dac_44khz from the local hub cache
+    (``load_cached_dac``), else draws seeded random weights with a warning.
+    """
 
     def __init__(self, params: dict | None = None, cfg: DACConfig = DACConfig(), dtype=torch.bfloat16,
                  frame_bucket: int = 128, device=None, seed: int = 0):
@@ -209,6 +294,9 @@ class DACAutoencoder:
         self.frame_bucket = frame_bucket
         self.sampling_rate = cfg.sampling_rate
         if params is None:
+            params = load_cached_dac(cfg, device=self.device)
+        if params is None:
+            logger.warning("no local %s checkpoint: the DAC uses random weights (seed %d)", HF_REPO_ID, seed)
             gen = torch.Generator(device=self.device)
             gen.manual_seed(seed)
             params = init_dac_params(gen, cfg, dtype=torch.float32, device=self.device)

@@ -107,10 +107,10 @@ def init_transformer_params(generator: torch.Generator, cfg: BackboneConfig, dty
 
 
 def _layer(tree, li: int):
-    """Layer li's slice of a layer-stacked param (plain tensor or {"q","s"} dict)."""
+    """Layer li's slice of a layer-stacked param (plain tensor, quantized dict; None kept)."""
     if isinstance(tree, dict):
         return {k: _layer(v, li) for k, v in tree.items()}
-    return tree[li]
+    return None if tree is None else tree[li]
 
 
 def _decode_mlp(h2: torch.Tensor, mlp_p: dict) -> torch.Tensor | None:

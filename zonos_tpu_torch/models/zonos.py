@@ -1,8 +1,11 @@
 """Top-level model handle (port of ``zonos_tpu/models/zonos.py``).
 
 ``from_config`` builds a random-init model from a seed on a device,
-``quantize`` makes its decode matmuls int8 or int4 (and the KV cache int8 by
-default), ``prepare_conditioning`` turns a ``make_cond_dict`` dict into the
+``from_local`` loads a reference checkpoint (``config.json`` +
+``model.safetensors``) and ``from_pretrained`` finds one in the local hub
+cache; either backbone (transformer or hybrid). ``quantize`` makes the
+decode matmuls int8 or int4 (and the KV cache int8 by default),
+``prepare_conditioning`` turns a ``make_cond_dict`` dict into the
 CFG-doubled prefix embeddings, ``generate`` turns those into audio codes,
 ``generate_audio`` into PCM with the DAC interleaved with the decode loop,
 and ``stream`` into PCM chunks as they are decoded.
@@ -25,7 +28,8 @@ from zonos_tpu_torch.conditioning.conditioners import (
 )
 from zonos_tpu_torch.config import ZonosConfig
 from zonos_tpu_torch.models.backbone import init_backbone_params
-from zonos_tpu_torch.ops.quant import quantize_transformer_params
+from zonos_tpu_torch.ops.cuda_matmul import reserve_mlp_scratch
+from zonos_tpu_torch.ops.quant import quantize_hybrid_params, quantize_transformer_params
 from zonos_tpu_torch.ops.sampling import SamplingParams
 from zonos_tpu_torch.runtime import generate as genmod
 from zonos_tpu_torch.runtime import streaming
@@ -119,12 +123,45 @@ class Zonos:
         }
         return cls(config, params, dtype, device)
 
+    @classmethod
+    def from_local(cls, config_path: str, model_path: str, dtype=torch.bfloat16, device=None) -> "Zonos":
+        """A reference-layout checkpoint: ``config.json`` and ``model.safetensors``."""
+        from zonos_tpu_torch.utils.loading import load_safetensors, torch_state_dict_to_params
+
+        device = resolve_device(device)
+        config = ZonosConfig.from_json(config_path)
+        params = torch_state_dict_to_params(load_safetensors(model_path), config, dtype, device)
+        return cls(config, params, dtype, device)
+
+    @classmethod
+    def from_pretrained(cls, repo_id: str, revision: str | None = None, cache_dir=None, dtype=torch.bfloat16,
+                        device=None) -> "Zonos":
+        """``repo_id``'s checkpoint from the local Hugging Face hub cache
+        (``utils.hub``); nothing is downloaded. Raises FileNotFoundError,
+        naming the directory searched, when the files are not there."""
+        from zonos_tpu_torch.utils.hub import cached_snapshot, repo_dir
+
+        device = resolve_device(device)
+        files = ("config.json", "model.safetensors")
+        snap = cached_snapshot(repo_id, files, revision=revision, cache_dir=cache_dir)
+        if snap is None:
+            where = repo_dir(repo_id, cache_dir) / "snapshots" / (revision or "*")
+            raise FileNotFoundError(f"{repo_id}: no {' and '.join(files)} under {where} (the port reads the local "
+                                    "hub cache only and downloads nothing)")
+        return cls.from_local(str(snap / files[0]), str(snap / files[1]), dtype=dtype, device=device)
+
     def quantize(self, bits: int = 8) -> "Zonos":
         """Weight-only int8 (``bits=8``) or group-wise int4 (``bits=4``) of the
-        backbone matmuls, int8 heads; int8 KV by default afterwards."""
-        m = Zonos(self.config, quantize_transformer_params(self.params, bits=bits), self.dtype, self.device)
+        backbone matmuls, int8 heads; int8 KV by default afterwards. On the
+        card K3's h scratch is sized here for the model's widest MLP, so no
+        decode step reallocates it."""
+        quantize = quantize_hybrid_params if self.config.backbone.is_hybrid else quantize_transformer_params
+        m = Zonos(self.config, quantize(self.params, bits=bits), self.dtype, self.device)
         m._autoencoder = self._autoencoder
         m.default_kv_int8 = True
+        if bits == 8 and self.device.type == "cuda":
+            bb = self.config.backbone
+            reserve_mlp_scratch(self.device, max(bb.d_intermediate, bb.attn_mlp_d_intermediate))
         return m
 
     # ------------------------------------------------------------------
@@ -272,7 +309,8 @@ class Zonos:
 
     @property
     def autoencoder(self):
-        """The DAC decoder on the model's device (random full-size weights)."""
+        """The DAC on the model's device: descript/dac_44khz from the local hub
+        cache, else seeded random full-size weights (``codec.dac``)."""
         if self._autoencoder is None:
             from zonos_tpu_torch.codec.dac import DACAutoencoder
 

@@ -294,6 +294,14 @@ def _h_scratch(device: torch.device, numel: int) -> torch.Tensor:
     return buf
 
 
+def reserve_mlp_scratch(device, f: int) -> torch.Tensor:
+    """Size K3's h scratch on ``device`` for MLPs up to width ``f`` at any B
+    K3 takes, so that no later call grows (and moves) it: a model whose MLPs
+    have two widths (the hybrid: 4096 and 8192) calls this once, with the
+    larger."""
+    return _h_scratch(torch.device(device), MAX_ROWS * f)
+
+
 def _launch_mlp(x, w1y, w1g, ld1, s1y, s1g, w2q, s2, f):
     b, d = x.shape
     d_out = w2q.shape[1]

@@ -83,6 +83,11 @@ def q4einsum_lastdim(x: torch.Tensor, w: dict) -> torch.Tensor:
 
 
 def dequantize(w) -> torch.Tensor:
+    """An int8 or int4 weight → its bf16 values ([..., K, N]); a plain one as it is."""
+    if is_quantized4(w):
+        *lead, g, half, n = w["q4"].shape
+        vals = unpack_nibbles(w["q4"], torch.float32) * w["s4"]
+        return vals.reshape(*lead, g * 2 * half, n).to(torch.bfloat16)
     if not is_quantized(w):
         return w
     return (w["q"].float() * w["s"]).to(torch.bfloat16)
@@ -131,6 +136,34 @@ def quantize_transformer_params(params: dict, bits: int = 8) -> dict:
     layers["attn"], layers["mlp"] = attn, mlp
     bb["layers"] = layers
     out["backbone"] = bb
-    heads = quantize_int8(params["heads"])
-    out["heads"] = {"q": pad_rows16(heads["q"]), "s": heads["s"]}
+    out["heads"] = _int8_heads(params["heads"])
     return out
+
+
+def _int8_heads(heads: torch.Tensor) -> dict:
+    """The output heads as int8, rows padded to 16 bytes for K1 (``pad_rows16``)."""
+    q = quantize_int8(heads)
+    return {"q": pad_rows16(q["q"]), "s": q["s"]}
+
+
+def quantize_hybrid_params(params: dict, bits: int = 8) -> dict:
+    """Quantize the hybrid backbone's mixer projections (Mamba2 and attention
+    in_proj and out_proj) and MLPs, int8 (``bits=8``) or group-wise int4
+    (``bits=4``), and the heads to int8 either way. Stacked Mamba runs keep
+    their leading run axis (the scales gain it too). Conv taps, norms, biases
+    and the SSD scalars stay as they are."""
+    if bits not in (4, 8):
+        raise ValueError(f"quantize: bits must be 4 or 8, got {bits}")
+    quant = quantize_int8 if bits == 8 else quantize_int4
+    groups = []
+    for group in params["backbone"]["groups"]:
+        group = dict(group)
+        mixer = dict(group["mixer"])
+        for k in ("in_proj", "out_proj"):
+            if isinstance(mixer.get(k), torch.Tensor):
+                mixer[k] = quant(mixer[k])
+        group["mixer"] = mixer
+        if group.get("mlp") is not None:
+            group["mlp"] = {"fc1": quant(group["mlp"]["fc1"]), "fc2": quant(group["mlp"]["fc2"])}
+        groups.append(group)
+    return {**params, "backbone": {**params["backbone"], "groups": groups}, "heads": _int8_heads(params["heads"])}

@@ -29,8 +29,8 @@ from zonos_tpu_torch.ops.sampling import SamplingParams
 
 UNKNOWN_TOKEN = -1
 MAX_REP_WINDOW = 100  # repetition-penalty context cap (the reference's 100-token window)
-PREFILL_BUCKET = 64  # the prefill is left-padded to a multiple of this
-AUDIO_BUCKET = 512  # the delayed-code buffer is a multiple of this
+PREFILL_BUCKET = 64  # default: the prefill is left-padded to a multiple of this
+AUDIO_BUCKET = 512  # default: the delayed-code buffer is a multiple of this
 
 
 def _bucket(n: int, m: int) -> int:
@@ -131,16 +131,28 @@ def _write_frame(delayed: torch.Tensor, offset: int, next_token: torch.Tensor) -
     return delayed
 
 
-def row_generators(seed: int | None, batch_size: int, device) -> list:
-    """One torch.Generator per sample row: row i draws from the stream of
-    (seed, i) only, so its tokens depend on its seed, its row and its frame,
-    never on its batch-mates. ``seed=None`` picks a random seed."""
+def row_generators(seed, batch_size: int, device) -> list:
+    """One torch.Generator per sample row, as JAX's ``seed_to_key`` resolves a seed.
+
+    An int (``None``: a random one): row i draws from the stream of
+    (seed, i), so batched rows differ. A sequence of ``batch_size`` ints: row
+    i draws from (seed[i], 0), the stream row 0 of a solo run at seed[i]
+    draws, so a batched request reproduces its solo run. Either way a row's
+    tokens depend on its own seed, row and frame, never on its batch-mates.
+    """
     if seed is None:
         seed = int(np.random.randint(0, 2**31 - 1))
+    if isinstance(seed, (list, tuple, np.ndarray, torch.Tensor)):
+        seeds = [int(s) for s in np.asarray(seed).reshape(-1)]
+        if len(seeds) != batch_size:
+            raise ValueError(f"{len(seeds)} seeds for a batch of {batch_size}: give one int or one seed per row")
+        pairs = [(s, 0) for s in seeds]
+    else:
+        pairs = [(int(seed), i) for i in range(batch_size)]
     gens = []
-    for i in range(batch_size):
+    for pair in pairs:
         g = torch.Generator(device=device)
-        g.manual_seed(int(np.random.SeedSequence([int(seed), i]).generate_state(1, dtype=np.uint64)[0]))
+        g.manual_seed(int(np.random.SeedSequence(list(pair)).generate_state(1, dtype=np.uint64)[0]))
         gens.append(g)
     return gens
 
@@ -184,11 +196,13 @@ def prepare_request(
     cfg_scale: float,
     batch_size: int,
     sampling_params: SamplingParams | dict | None,
-    seed: int | None,
+    seed,
     dtype,
     forbid_eos: bool,
     kv_int8: bool,
     device,
+    prefill_bucket: int = PREFILL_BUCKET,
+    audio_bucket: int = AUDIO_BUCKET,
 ) -> Request:
     """Bucket the prefill, the delayed-code buffer and the cache as the JAX
     package does, and place the request's inputs on ``device``."""
@@ -201,8 +215,8 @@ def prepare_request(
     n_q = cfg.codebook_dimension
     lp = 0 if audio_prefix_codes is None else int(audio_prefix_codes.shape[2])
     t0 = int(prefix_conditioning.shape[1]) + lp + 1
-    prefill_len = _bucket(t0, PREFILL_BUCKET)
-    delayed_len = _bucket(lp + max_new_tokens + n_q, AUDIO_BUCKET)
+    prefill_len = _bucket(t0, prefill_bucket)
+    delayed_len = _bucket(lp + max_new_tokens + n_q, audio_bucket)
     cache_len = _bucket(prefill_len + (delayed_len - (lp + 1)) + 1, 128)
     statics = GenerateStatics(
         cfg=cfg, sampling=sampling_params, prefill_len=prefill_len, delayed_len=delayed_len,
@@ -232,7 +246,9 @@ def generate(
     cfg_scale: float = 2.0,
     batch_size: int = 1,
     sampling_params: SamplingParams | dict | None = None,
-    seed: int | None = None,
+    seed=None,
+    prefill_bucket: int = PREFILL_BUCKET,
+    audio_bucket: int = AUDIO_BUCKET,
     dtype=torch.bfloat16,
     forbid_eos: bool = False,
     kv_int8: bool = False,
@@ -243,16 +259,18 @@ def generate(
     """Generate sanitized audio codes [B, n_q, L] (numpy int32).
 
     L is the longest sample's valid length; shorter samples are zero-padded.
-    ``return_lengths`` also returns the per-sample lengths [B]. ``params``
-    must live on ``device`` (default: the card). A ``stats`` dict receives
-    the prefill and decode-loop seconds (each ending in a device sync) and
-    the number of decode steps.
+    ``return_lengths`` also returns the per-sample lengths [B]. ``seed`` is an
+    int, None or one int per row (``row_generators``). The prefill is
+    left-padded to a multiple of ``prefill_bucket`` and the code buffer sized
+    to one of ``audio_bucket``. ``params`` must live on ``device`` (default:
+    the card). A ``stats`` dict receives the prefill and decode-loop seconds
+    (each ending in a device sync) and the number of decode steps.
     """
     from zonos_tpu_torch.runtime.streaming import build_prefill_fn, build_segment_fn
 
     device = resolve_device(device)
     req = prepare_request(cfg, prefix_conditioning, audio_prefix_codes, max_new_tokens, cfg_scale, batch_size,
-                          sampling_params, seed, dtype, forbid_eos, kv_int8, device)
+                          sampling_params, seed, dtype, forbid_eos, kv_int8, device, prefill_bucket, audio_bucket)
     statics = req.statics
 
     tic = time.perf_counter()

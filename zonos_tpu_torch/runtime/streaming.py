@@ -25,7 +25,9 @@ from zonos_tpu_torch.models.backbone import backbone_forward, create_cache
 from zonos_tpu_torch.ops.delay_pattern import revert_delay_pattern
 from zonos_tpu_torch.ops.sampling import SamplingParams, sample_from_logits
 from zonos_tpu_torch.runtime.generate import (
+    AUDIO_BUCKET,
     MAX_REP_WINDOW,
+    PREFILL_BUCKET,
     DecodeCarry,
     GenerateStatics,
     _bucket,
@@ -164,8 +166,8 @@ def build_segment_fn(statics: GenerateStatics):
     return segment_fn
 
 
-# Frames of left context each streamed chunk is decoded with (then trimmed).
-_STREAM_CONTEXT_FRAMES = 16
+# Default frames of left context each streamed chunk is decoded with (then trimmed).
+STREAM_CONTEXT_FRAMES = 16
 
 
 def _read_status(status: torch.Tensor, batch_size: int):
@@ -185,9 +187,12 @@ def generate_stream(
     cfg_scale: float = 2.0,
     batch_size: int = 1,
     sampling_params: SamplingParams | dict | None = None,
-    seed: int | None = None,
+    seed=None,
     first_chunk_frames: int = 16,
     chunk_frames: int = 64,
+    dac_context_frames: int = STREAM_CONTEXT_FRAMES,
+    prefill_bucket: int = PREFILL_BUCKET,
+    audio_bucket: int = AUDIO_BUCKET,
     dtype=torch.bfloat16,
     forbid_eos: bool = False,
     kv_int8: bool = False,
@@ -197,8 +202,8 @@ def generate_stream(
     """Yield (pcm_chunk [T] float32, sample_rate) as audio becomes available.
 
     The first segment decodes ``first_chunk_frames`` steps, later ones
-    ``chunk_frames``. Each chunk is decoded with ``_STREAM_CONTEXT_FRAMES``
-    of left context, which is trimmed. The final yield truncates at the EOS
+    ``chunk_frames``. Each chunk is decoded with ``dac_context_frames`` of
+    left context, which is trimmed. The final yield truncates at the EOS
     boundary exactly like ``generate``.
 
     batch_size > 1 with an autoencoder is BATCHED streaming: each yield is
@@ -213,7 +218,7 @@ def generate_stream(
     """
     device = resolve_device(device)
     req = prepare_request(cfg, prefix_conditioning, audio_prefix_codes, max_new_tokens, cfg_scale, batch_size,
-                          sampling_params, seed, dtype, forbid_eos, kv_int8, device)
+                          sampling_params, seed, dtype, forbid_eos, kv_int8, device, prefill_bucket, audio_bucket)
     statics = req.statics
     segment = build_segment_fn(statics)
     n_q = cfg.codebook_dimension
@@ -247,7 +252,7 @@ def generate_stream(
             total = max(offset - n_q, 0)  # complete de-delayed frames so far
 
         if autoencoder is not None and total > emitted_frames:
-            ctx = min(_STREAM_CONTEXT_FRAMES, emitted_frames)
+            ctx = min(dac_context_frames, emitted_frames)
             take = min(total, int(device_codes.shape[2]))
             lo = emitted_frames - ctx
             n = take - lo
@@ -311,8 +316,10 @@ def generate_audio(
     cfg_scale: float = 2.0,
     batch_size: int = 1,
     sampling_params: SamplingParams | dict | None = None,
-    seed: int | None = None,
+    seed=None,
     chunk_frames: int | None = None,
+    prefill_bucket: int = PREFILL_BUCKET,
+    audio_bucket: int = AUDIO_BUCKET,
     dtype=torch.bfloat16,
     forbid_eos: bool = False,
     kv_int8: bool = False,
@@ -334,6 +341,7 @@ def generate_audio(
     ``autoencoder.decode`` up to the convolutions' summation order, which
     varies with the piece shape.
 
+    ``seed``, ``prefill_bucket`` and ``audio_bucket`` are ``generate``'s.
     A ``stats`` dict receives ``prefill_s``, ``segments_s`` (the decode
     segments, each ending in its status readback, so DAC work queued behind a
     segment is counted there), ``dac_s`` (host time issuing the DAC pieces and
@@ -343,7 +351,7 @@ def generate_audio(
     if chunk_frames is None:
         chunk_frames = LOCAL_CHUNK_FRAMES
     req = prepare_request(cfg, prefix_conditioning, audio_prefix_codes, max_new_tokens, cfg_scale, batch_size,
-                          sampling_params, seed, dtype, forbid_eos, kv_int8, device)
+                          sampling_params, seed, dtype, forbid_eos, kv_int8, device, prefill_bucket, audio_bucket)
     statics = req.statics
     segment = build_segment_fn(statics)
     n_q = cfg.codebook_dimension

@@ -12,8 +12,6 @@ from __future__ import annotations
 
 import functools
 import logging
-import os
-from pathlib import Path
 
 import numpy as np
 import torch
@@ -26,6 +24,7 @@ from zonos_tpu_torch.speaker.resnet import (
     speaker_encoder_forward,
     speaker_state_dict_to_params,
 )
+from zonos_tpu_torch.utils.hub import cached_snapshot
 
 logger = logging.getLogger("zonos_tpu_torch")
 
@@ -103,16 +102,9 @@ class SpeakerEmbeddingLDA:
 
 
 def _cached_checkpoints() -> tuple[str, str] | None:
-    """The two checkpoints in a local Hugging Face hub cache, if present
-    (``HF_HUB_CACHE``, else ``HF_HOME/hub``, else ``~/.cache/huggingface/hub``)."""
-    hub = os.environ.get("HF_HUB_CACHE") or os.path.join(
-        os.environ.get("HF_HOME") or os.path.join(os.path.expanduser("~"), ".cache", "huggingface"), "hub")
-    snapshots = Path(hub) / f"models--{REPO_ID.replace('/', '--')}" / "snapshots"
-    for snap in sorted(snapshots.glob("*")) if snapshots.is_dir() else ():
-        ckpt, lda = snap / CKPT_NAME, snap / LDA_NAME
-        if ckpt.is_file() and lda.is_file():
-            return str(ckpt), str(lda)
-    return None
+    """The two checkpoints in a local Hugging Face hub cache, if present (``utils.hub``)."""
+    snap = cached_snapshot(REPO_ID, (CKPT_NAME, LDA_NAME))
+    return None if snap is None else (str(snap / CKPT_NAME), str(snap / LDA_NAME))
 
 
 def default_speaker_model(device=None, ckpt_path: str | None = None,
