@@ -15,7 +15,12 @@ Phases; any failure exits non-zero:
      library call of the same function as a yardstick; every kernel but K5/K6
      and its yardstick are timed again after a flush that reads the same
      256 MB (K5), which leaves clean lines in the L2; K3, K3s and K4 give
-     bit-equal outputs on two calls;
+     bit-equal outputs on two calls; K1 and K3 at the continuous engine's 16
+     rows and K2 over its cache (16 rows of 3328 slots, a dead span of its
+     own length per row, read through a 1024-slot attend view); then K1 and
+     K3 called from two host threads at once, 200 calls each at B 2 and 16,
+     one thread on a stream of its own: every output bit-equal to the same
+     call made alone, launch counts exact;
   3. the streaming probes K5/K6: one int8 [16384, 8192] array summed once by
      each (their own path, launch counts set to 0 before it and checked after
      it), both held exactly to the plain version and torch.sum, with times and
@@ -28,12 +33,12 @@ Phases; any failure exits non-zero:
      read back by from_local, params bit-equal; a short DAC decode compared;
   5. the main path: the flagship transformer (24 layers), int8 weights and KV,
      860 frames (10 s) at cfg 2.0 and min-p 0.1, then the full-size DAC to
-     int16 PCM; run twice, the second run timed with every kernel's launch
-     count set to 0 before it and checked after it;
+     int16 PCM; a 128-frame warm-up run, then the timed run with every
+     kernel's launch count set to 0 before it and checked after it;
   6. the facade path on int4 weights: English text and a speaker vector through
      make_cond_dict, prepare_conditioning (cfg 2.0) and generate_audio (the DAC
      of settled spans interleaved with the decode loop) to 430 frames of int16
-     PCM; a warm-up run, then a run with every launch count set to 0 before it
+     PCM; a 128-frame warm-up run, then a run with every launch count set to 0 before it
      and checked after it; the phonemes must come from the native G2P engine;
      at greedy, generate_audio against generate + a whole-request DAC decode;
   7. the voice-clone request on phase 5's int8 model: pipeline.tts with a 10 s
@@ -55,12 +60,34 @@ Phases; any failure exits non-zero:
      kernels' sum, and the union of their intervals) and kernel launches per
      decode step against the step's wall time from phase 5, 6 or 8, the top
      kernels, and each kernel wrapper's device kernels per call as designed
-     (K1, K2 and K4 one, K3 two: fc1 + gate, then fc2).
+     (K1, K2 and K4 one, K3 two: fc1 + gate, then fc2);
+ 10. the server, in a process of its own (``--phase10``, so that phase 9's
+     profiler raises none of its times): the flagship written as a reference
+     checkpoint and named in a configmodel.txt of a temporary working
+     directory, ``zonos_tpu_torch.serving.server.main`` started in a thread
+     on 127.0.0.1 (start seconds); the GET routes, ping, a /generate with a
+     10 s inline speaker wav (its WAV against the file the metadata names),
+     the same body again (identical bytes), /stream (time to the first
+     chunk), /v1/audio/speech, two concurrent /generate requests bit-equal
+     to each served alone; ZONOS_BATCHING=1: eight requests of 1-4 s through
+     the continuous engine (four at once, four while the epoch runs: a
+     mid-epoch join and a slot recycle required), per-request RTF and audio
+     seconds per wall second; greedy codes of a 1-slot engine equal to
+     generate's, and those of the 8-slot engine (three at once, one more
+     joining mid-epoch) equal to EngineReference's (generate's prefill at 2
+     rows, its decode at 16 from the join step); ZONOS_CONTINUOUS=0: four
+     requests through the dynamic
+     batcher; then the hybrid (as phase 8 makes it) through an engine of 4
+     slots. Every path's launch counts of K1-K3 are checked exactly against
+     the decode steps and prefills it ran.
 With ``--parts``, only the device kernels of one K3, K3s or K4 call at the
-main path's shapes, each with its device time under torch.profiler.
+main path's shapes, each with its device time under torch.profiler. With
+``--pair-streams``, only two flagship requests alone and at once, on the
+default stream and on a stream each.
 Prints one line per kernel check, a ``{"kernels": [...]}`` line (``launches``
-from phase 5, or phase 6 for K4, and ``launches_by_path`` for phases 5, 6
-and 8), the card's name and power limit, and last ``{"ok": true, "device": {...}}``.
+from phase 5, or phase 6 for K4, and ``launches_by_path`` for phases 5, 6, 8
+and 10, the last as "server"), the card's name and power limit, and last
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -204,18 +231,27 @@ def _k2_cases(gen, flush, read_flush):
     from zonos_tpu_torch.models.transformer import _kv_quantize
     from zonos_tpu_torch.ops import cuda_attention as A
 
-    b, hkv, hq, dh = 2, 4, 16, 128
+    hkv, hq, dh = 4, 16, 128
     rows = []
-    # the main path's cache (1152 slots, timed), and a cache long enough that
-    # each rank walks its share in two bulk-copy stages (checked only)
-    for case, s, wi, gap_start, gap in (("mid-cache", 1152, 700, 0, None), ("gap", 1152, 900, 128, [40, 0]),
-                                        ("long-cache", 8192, 8000, 0, None)):
+    # the main path's cache (1152 slots, timed), a cache long enough that each
+    # rank walks its share in two bulk-copy stages (checked only), and the
+    # continuous engine's: 16 rows of a 3328-slot cache, a dead span after the
+    # 256-slot prefill with its own length per row, read through the
+    # 1024-slot view of an attend rung (timed)
+    engine_gap = [int(v) for v in np.random.default_rng(7).integers(0, 700, 16)]
+    for case, b, s, view, wi, gap_start, gap in (
+            ("mid-cache", 2, 1152, None, 700, 0, None), ("gap", 2, 1152, None, 900, 128, [40, 0]),
+            ("long-cache", 2, 8192, None, 8000, 0, None),
+            ("engine B=16 S=3328 attend 1024", 16, 3328, 1024, 1000, 256, engine_gap)):
         q = torch.randn((b, 1, hq, dh), generator=gen, device="cuda").to(torch.bfloat16)
         kq, ks = _kv_quantize(torch.randn((b, s, hkv, dh), generator=gen, device="cuda") * 2.0)
         vq, vs = _kv_quantize(torch.randn((b, s, hkv, dh), generator=gen, device="cuda"))
         kq, vq = kq.transpose(1, 2).contiguous(), vq.transpose(1, 2).contiguous()
         ks, vs = ks.transpose(1, 2).contiguous(), vs.transpose(1, 2).contiguous()
-        pad_host = [3, 17]
+        if view is not None:  # the segment's view of the cache: cut along S, strides kept
+            kq, vq, ks, vs = kq[:, :, :view], vq[:, :, :view], ks[:, :, :view], vs[:, :, :view]
+            s = view
+        pad_host = [3, 17] if b == 2 else [int(v) for v in np.random.default_rng(8).integers(0, 200, b)]
         pad = torch.tensor(pad_host, dtype=torch.int32, device="cuda")
         wi_t = torch.tensor([wi], dtype=torch.int32, device="cuda")
         gap_len = None if gap is None else torch.tensor(gap, dtype=torch.int32, device="cuda")
@@ -252,7 +288,7 @@ def _k2_cases(gen, flush, read_flush):
         plan = A.attn_plan(s, hq // hkv)
         row = {"case": case, "max_abs_err": err, "corr": corr, "cluster": plan.cluster,
                "stages": -(-plan.share_cap // plan.stage)}
-        if s == 1152:
+        if case != "long-cache":
             row.update({
                 "ms": _time_ms(kernel, flush),
                 "plain_ms": _time_ms(lambda: A.attn_core_int8_plain(*args), flush),
@@ -271,8 +307,10 @@ def _k3_cases(gen, flush, read_flush):
     from zonos_tpu_torch.ops.quant import quantize_int8
 
     rows = []
-    # the flagship MLP (K3 and K3s), then the hybrid's Mamba-layer MLP (K3)
-    for b, d, f, names in ((2, 2048, 8192, ("K3", "K3s")), (2, 2048, HYBRID_F, ("K3 hybrid",))):
+    # the flagship MLP (K3 and K3s), the hybrid's Mamba-layer MLP (K3), and
+    # the flagship MLP at the continuous engine's 16 rows (K3)
+    for b, d, f, names in ((2, 2048, 8192, ("K3", "K3s")), (2, 2048, HYBRID_F, ("K3 hybrid",)),
+                           (16, 2048, 8192, ("K3 B16",))):
         rows += _k3_shape(M, quantize_int8, gen, flush, read_flush, b, d, f, names)
     return rows
 
@@ -319,6 +357,72 @@ def _k3_shape(M, quantize_int8, gen, flush, read_flush, b, d, f, names):
         rows.append((name, row))
         print(name.split()[0], json.dumps(row), flush=True)
     return rows
+
+
+def _two_thread_check(gen, calls: int = 200):
+    """K1 (2048 -> 3072) and K3 (D 2048, F 8192) from two host threads at
+    once, the way the server's request threads call them: each thread makes
+    ``calls`` calls of each at B 2 and at B 16 on its own inputs and weights,
+    one thread on the default stream and the other on a stream of its own.
+    Every output must be bit-equal to the same call made alone, and the
+    launch counts exact. The wrappers enter the kernel libraries through
+    ctypes, which releases the GIL: this holds K3's h scratch (kept per
+    stream, fc1 + fc2 issued under a lock), the tensor-map cache and the
+    attribute flags (a mutex in each library) and the counters (a lock)."""
+    from zonos_tpu_torch.ops import cuda_matmul as M
+    from zonos_tpu_torch.ops.quant import quantize_int8
+
+    d, n, f = 2048, 3072, 8192
+    work = []
+    for _t in range(2):
+        w1 = quantize_int8(torch.randn((d, n), generator=gen, device="cuda") / d ** 0.5)
+        m1 = quantize_int8(torch.randn((d, 2 * f), generator=gen, device="cuda") / d ** 0.5)
+        m2 = quantize_int8(torch.randn((f, d), generator=gen, device="cuda") / f ** 0.5)
+        xs = {b: torch.randn((b, d), generator=gen, device="cuda").to(torch.bfloat16) for b in (2, 16)}
+        calls_t = []
+        for b, x in xs.items():
+            calls_t.append((f"K1 B={b}", lambda x=x, w=w1: M.int8_matmul(x, w["q"], w["s"])))
+            calls_t.append((f"K3 B={b}", lambda x=x, a=m1, c=m2: M.fused_mlp_int8(x, a["q"], a["s"], c["q"], c["s"])))
+        work.append(calls_t)
+    alone = [[fn() for _name, fn in calls_t] for calls_t in work]
+    torch.cuda.synchronize()
+    M.int8_matmul.launches = M.fused_mlp_int8.launches = 0
+    outs = [[], []]
+    errors = []
+    side = torch.cuda.Stream()
+
+    def run(t):
+        try:
+            with torch.cuda.stream(side if t else torch.cuda.default_stream()):
+                for _ in range(calls):
+                    outs[t].append([fn() for _name, fn in work[t]])
+                torch.cuda.current_stream().synchronize()
+        except Exception as e:  # reported below
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=run, args=(t,)) for t in range(2)]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if errors:
+        _fail(f"phase 2 two threads: {errors}")
+    counts = {"int8_matmul": M.int8_matmul.launches, "fused_mlp_int8": M.fused_mlp_int8.launches}
+    expected = {"int8_matmul": 2 * calls * 2, "fused_mlp_int8": 2 * calls * 2}
+    differ = {}
+    for t in range(2):
+        for i, (name, _fn) in enumerate(work[t]):
+            bad = sum(not torch.equal(o[i], alone[t][i]) for o in outs[t])
+            if bad:
+                differ[f"thread {t} {name}"] = bad
+    row = {"calls_per_thread_and_case": calls, "launches": counts, "expected": expected,
+           "outputs_differing_from_the_call_alone": differ, "wall_s": wall}
+    print("phase2 two threads:", json.dumps(row), flush=True)
+    if counts != expected or differ:
+        _fail(f"phase 2 two threads: launches {counts} (expected {expected}), differing outputs {differ}")
 
 
 def _k4_cases(gen, flush, read_flush):
@@ -410,6 +514,43 @@ def _kernel_parts() -> None:
                  if e.device_type == torch.autograd.DeviceType.CUDA and e.count and "Fill" not in e.key]
         print("parts", name, json.dumps({"card": _card_line(), "kernels": parts,
                                          "us_per_call": sum(p["us"] * p["per_call"] for p in parts)}), flush=True)
+
+
+def _pair_streams() -> int:
+    """``--pair-streams``: two int8 requests of the flagship (seed 0) through
+    ``generate_audio``, each alone, then both at once from two threads, on
+    the default stream and each on a stream of its own: seconds, and whether
+    each PCM is bit-equal to its run alone. The measurement behind the
+    server's limit of one single request at a time."""
+    from zonos_tpu_torch.conditioning.cond_dict import make_cond_dict
+    from zonos_tpu_torch.config import zonos_v01_transformer_config
+    from zonos_tpu_torch.models.zonos import Zonos
+    from zonos_tpu_torch.ops import _build
+
+    _build.build_all()
+    model = Zonos.from_config(zonos_v01_transformer_config(), seed=0, dtype=torch.bfloat16, device="cuda").quantize()
+    conds = [model.prepare_conditioning(make_cond_dict(text=t, speaker=np.zeros((1, 1, 128), np.float32)))
+             for t in ("The inn is warm and the ale is cold.", "Who goes there, stranger of the north?")]
+
+    def one(i, stream=None):
+        t = time.perf_counter()
+        with torch.cuda.stream(stream or torch.cuda.current_stream()), torch.no_grad():
+            if stream is not None:
+                stream.wait_stream(torch.cuda.default_stream())
+            pcm, _lengths = model.generate_audio(conds[i], max_new_tokens=172, seed=11 + i, pcm_int16=True)
+            pcm = np.asarray(pcm.cpu() if torch.is_tensor(pcm) else pcm)
+        return pcm, time.perf_counter() - t
+
+    one(0), one(1)  # warm-up
+    alone = [one(0), one(1)]
+    out = {"card": _card_line(), "alone_s": [a[1] for a in alone]}
+    for label, streams in (("default_stream", [None, None]), ("own_streams", [torch.cuda.Stream(), torch.cuda.Stream()])):
+        t = time.perf_counter()
+        both = _parallel(one, [(i, streams[i]) for i in range(2)])
+        out[label] = {"wall_s": time.perf_counter() - t, "each_s": [b[1] for b in both],
+                      "bit_equal": [bool(np.array_equal(both[i][0], alone[i][0])) for i in range(2)]}
+    print("pair streams:", json.dumps(out), flush=True)
+    return 0
 
 
 # ---------------------------------------------------------------------------
@@ -635,10 +776,10 @@ def _phase_main_path(card: str):
     cond = np.random.default_rng(0).normal(size=(2, 80, cfg.backbone.d_model)).astype(np.float32) * 0.05
     frames = 860
 
-    def run(seed):
+    def run(seed, n=frames):
         stats = {}
         t = time.perf_counter()
-        codes = model.generate(cond, max_new_tokens=frames, cfg_scale=2.0, seed=seed,
+        codes = model.generate(cond, max_new_tokens=n, cfg_scale=2.0, seed=seed,
                                sampling_params=SamplingParams(min_p=0.1), forbid_eos=True,
                                kv_int8=True, stats=stats)
         t_gen = time.perf_counter() - t
@@ -647,7 +788,8 @@ def _phase_main_path(card: str):
         return codes, pcm, stats, t_gen, time.perf_counter() - t
 
     with torch.no_grad():
-        run(1)  # warm-up: kernel libraries loaded, cuDNN plans picked
+        run(1, n=128)  # warm-up, short: kernel libraries loaded; then the DAC at the timed shape
+        ae.decode_device(np.zeros((1, cfg.codebook_dimension, frames), np.int32), to_int16=True).cpu()
         kernels = (M.int8_matmul, A.attn_core_int8, M.fused_mlp_int8, M.fused_mlp_int8_split, M.int4_matmul)
         for k in kernels:
             k.launches = 0
@@ -725,10 +867,10 @@ def _phase_facade_int4(card: str):
         torch.cuda.synchronize()
         return cond, time.perf_counter() - t
 
-    def run(seed, sampling):
+    def run(seed, sampling, frames=FACADE_FRAMES):
         stats = {}
         t = time.perf_counter()
-        wav, lengths = model.generate_audio(cond, max_new_tokens=FACADE_FRAMES, cfg_scale=2.0,
+        wav, lengths = model.generate_audio(cond, max_new_tokens=frames, cfg_scale=2.0,
                                             sampling_params=sampling, seed=seed, forbid_eos=True,
                                             pcm_int16=True, stats=stats)
         return wav, lengths, stats, time.perf_counter() - t
@@ -736,7 +878,7 @@ def _phase_facade_int4(card: str):
     kernels = (M.int4_matmul, M.int8_matmul, A.attn_core_int8, M.fused_mlp_int8, M.fused_mlp_int8_split)
     with torch.no_grad():
         cond, _ = conditioning()
-        run(1, SamplingParams(min_p=0.1))  # warm-up
+        run(1, SamplingParams(min_p=0.1), frames=128)  # warm-up, short
         cond, t_cond = conditioning()
         torch.cuda.reset_peak_memory_stats()
         for k in kernels:
@@ -1014,6 +1156,700 @@ def _phase_hybrid(card: str):
 
 
 # ---------------------------------------------------------------------------
+# Phase 10: the server, the continuous engine and the dynamic batcher
+# ---------------------------------------------------------------------------
+
+# Token budgets follow the text length (pipeline.prepare_generation_params):
+# max(86, 2 + ceil(6.5 * characters)) frames, so 13 characters make 1 s of
+# audio, 26 make 2 s, 39 make 3 s and 52 make 4 s.
+SERVER_TEXT = "Good evening, my friend."  # 24 characters: 158 frames
+ENGINE_WAVE1 = ["Hello there.", "Stay awhile.",
+                "The guards at the gate will not let you pass tonight.",
+                "Bring me three wolf pelts and I will pay you in gold."]
+ENGINE_WAVE2 = ["Who goes there", "The inn is warm and the ale is cold",
+                "Snow falls on the mountain pass, so travel at dawn.", "Farewell, friend."]
+
+
+def _http(port: int, path: str, body=None, timeout: float = 900.0):
+    """(status, headers, bytes) of one request to the local server; any
+    status but 200 fails the run."""
+    import urllib.error
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data,
+                                 method="GET" if body is None else "POST")
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, dict(r.headers), r.read()
+    except urllib.error.HTTPError as e:
+        _fail(f"phase 10: {path} answered {e.code}: {e.read()[:300]!r}")
+
+
+def _wav(data: bytes) -> tuple[int, np.ndarray]:
+    import io
+    import wave
+
+    with wave.open(io.BytesIO(data)) as w:
+        if w.getnchannels() != 1 or w.getsampwidth() != 2:
+            _fail(f"phase 10: a WAV of {w.getnchannels()} channels, {w.getsampwidth()} bytes per sample")
+        return w.getframerate(), np.frombuffer(w.readframes(w.getnframes()), "<i2")
+
+
+def _parallel(fn, args_list) -> list:
+    """fn(*args) for each args on a thread of its own; results in order; an
+    exception on any thread fails the run."""
+    out, errors = [None] * len(args_list), []
+
+    def run(i, args):
+        try:
+            out[i] = fn(*args)
+        except BaseException as e:  # noqa: BLE001  reported below
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=run, args=(i, a)) for i, a in enumerate(args_list)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        _fail(f"phase 10: {errors}")
+    return out
+
+
+def _greedy_parity(model, eng, max_new_tokens: int | None = None) -> dict:
+    """Greedy codes of the continuous engine ``eng`` (2·slots rows) on
+    ``model``'s device; every gate is exact:
+    - a 1-slot engine (2 rows) per request against generate alone (2 rows),
+      at the engine's prefill bucket and cache length (another bucket moves
+      greedy tokens, in JAX as in the port);
+    - ``eng``: three requests at once, and then, in a fresh engine of its
+      shapes, the first again joining mid-epoch behind a longer request,
+      each against EngineReference from its recorded join step.
+    Reported beside them: the codes' first differing frame against generate
+    at 2 rows and at the engine's rows, and the share of generate's 2-row picks that the
+    engine's arithmetic makes too (teacher forcing): K1's and K3's 2-row
+    plans, and the int8 q of a 16-row prefill, move near-tied picks of
+    random weights. ``max_new_tokens`` caps the requests (a short run on the CPU)."""
+    from zonos_tpu_torch.ops.sampling import SamplingParams
+    from zonos_tpu_torch.runtime.generate import generate
+    from zonos_tpu_torch.serving.batcher import DynamicBatcher, TTSRequest
+    from zonos_tpu_torch.serving.continuous import ContinuousEngine, _SingleView
+    from zonos_tpu_torch.serving.pipeline import prepare_generation_params
+
+    greedy = SamplingParams(temperature=0.0)
+    picks = [ENGINE_WAVE1[0], ENGINE_WAVE2[3], ENGINE_WAVE2[0]]
+
+    def greedy_request(i, text, seed=None):
+        n = prepare_generation_params(text, randomize_seed=False).max_new_tokens
+        return TTSRequest(text=text, seed=300 + i if seed is None else seed, sampling=greedy,
+                          max_new_tokens=min(n, max_new_tokens or n))
+
+    def reference(req, rows):
+        cond = model.prepare_conditioning(DynamicBatcher._batched_cond_dict(_SingleView(model), [req]),
+                                          cfg_scale=req.cfg_scale)
+        b = rows // 2
+        cond = torch.cat([cond[:1].expand(b, -1, -1), cond[1:].expand(b, -1, -1)])
+        return generate(model.params, model.config, cond, max_new_tokens=req.max_new_tokens,
+                        cfg_scale=req.cfg_scale, batch_size=b, sampling_params=greedy, seed=[req.seed] * b,
+                        prefill_bucket=eng.prefill_len, audio_bucket=eng.delayed_len, dtype=model.dtype,
+                        kv_int8=True, device=model.device)[0]
+
+    def first_diff(ref, mine):
+        n = min(ref.shape[-1], mine.shape[-1])
+        diff = np.nonzero((ref[:, :n] != mine[:, :n]).any(axis=0))[0]
+        return int(diff[0]) if diff.size else (None if ref.shape == mine.shape else n)
+
+    def engine_like(slots):  # an engine of eng's shapes
+        return ContinuousEngine(model, slots=slots, prefill_len=eng.prefill_len,
+                                max_new_cap=eng.delayed_len - model.config.codebook_dimension,
+                                segment_frames=eng.segment_frames, first_chunk_frames=eng.first_chunk_frames)
+
+    with torch.no_grad():
+        refs2 = [reference(greedy_request(i, t), 2) for i, t in enumerate(picks)]
+        gate = []
+        for i, text in enumerate(picks):
+            req = greedy_request(i, text)
+            one = engine_like(1)
+            tap = CodeTap(one)
+            try:
+                one.submit(req)
+            finally:
+                one.close()
+            gate.append({"frames": int(refs2[i].shape[-1]), "engine_frames": int(tap.of(req).shape[-1]),
+                         "first_differing_frame": first_diff(refs2[i], tap.of(req))})
+        print("phase10 greedy codes, 1-slot engine vs generate (gate):", json.dumps(gate), flush=True)
+        if any(p["first_differing_frame"] is not None for p in gate):
+            _fail(f"phase 10: greedy codes of a 1-slot engine differ from generate's: {gate}")
+
+        # the three at once in eng; then, in a fresh engine of eng's shapes,
+        # the first again joining behind a longer request
+        reqs = [greedy_request(i, t) for i, t in enumerate(picks)]
+        filler = TTSRequest(text=ENGINE_WAVE2[1], seed=399, sampling=greedy,  # uncut: it outlives the joiner
+                            max_new_tokens=prepare_generation_params(ENGINE_WAVE2[1], randomize_seed=False).max_new_tokens)
+        late = greedy_request(0, picks[0], seed=303)  # greedy: its codes are the first's
+        rolled = eng.stats["rolled_steps"]
+        mid = engine_like(eng.slots)
+        taps = [CodeTap(eng)] * 3 + [CodeTap(mid)]
+        try:
+            with JoinTap() as joins:
+                _parallel(eng.submit, [(r,) for r in reqs])
+
+                def join_late():  # once the filler's first segment has run
+                    t = time.perf_counter()
+                    while not mid.stats["steps"] and time.perf_counter() - t < 120:
+                        time.sleep(0.01)
+                    mid.submit(late)
+
+                _parallel(lambda f: f(), [(lambda: mid.submit(filler),), (join_late,)])
+        finally:
+            mid.close()
+        if eng.stats["rolled_steps"] != rolled or mid.stats["rolled_steps"]:
+            _fail("phase 10: a KV roll during the greedy requests: EngineReference assumes none")
+        ref = EngineReference(model, eng)
+        wide = []
+        for i, r in enumerate(reqs + [late]):
+            j, got = joins.of(r, model.device), taps[i].of(r)
+            wide.append({"join_step": j, "frames": int(got.shape[-1]),
+                         "vs_reference": first_diff(ref.codes(r, j), got),
+                         "vs_generate_2_rows": first_diff(refs2[i if i < 3 else 0], got),
+                         "vs_generate_engine_rows": first_diff(reference(r, 2 * eng.slots), got) if i < 3 else None,
+                         "generate_2_rows_forced": ref.forced(r, refs2[i], j) if i < 3 else None})
+    print(f"phase10 greedy codes, {eng.slots}-slot engine vs EngineReference (gate), vs generate at 2 and at "
+          f"{2 * eng.slots} rows:", json.dumps(wide), flush=True)
+    if any(p["vs_reference"] is not None for p in wide) or not wide[-1]["join_step"] > 0:
+        _fail(f"phase 10: greedy codes of the {eng.slots}-slot engine differ from EngineReference's, "
+              f"or the late request did not join mid-epoch: {wide}")
+    return {"one_slot_engine": gate, "eight_slot_engine": wide}
+
+
+class EngineReference:
+    """A greedy request's codes as the continuous engine computes them, made
+    with generate's own prefill and decode functions: the prefill at the
+    engine's 2 rows (the engine prefills each joiner alone), then the decode
+    at its 2·slots rows (the request's rows repeated into every slot), at the
+    engine's prefill bucket, code buffer and cache length, from the batch
+    step the request joined at (``JoinTap``; no KV roll in between). A
+    generate call at 16 rows is not this: its prefill quantizes q to int8
+    at 16 rows (as JAX's does, ``ops/attention.gqa_attention_quantized``),
+    and one at 2 rows decodes on K1's and K3's 2-row plans, whose f32 sums
+    group differently. ``forced`` runs given codes through the same
+    arithmetic (teacher forcing) and counts the (step, codebook) pairs where
+    the given token is the reference's greedy pick."""
+
+    def __init__(self, model, eng):
+        self.model, self.eng = model, eng
+
+    def _start(self, req, join_step: int):
+        from zonos_tpu_torch.models.transformer import KVCache
+        from zonos_tpu_torch.runtime.generate import prepare_request
+        from zonos_tpu_torch.runtime.streaming import build_prefill_fn
+        from zonos_tpu_torch.serving.batcher import DynamicBatcher
+        from zonos_tpu_torch.serving.continuous import _SingleView
+
+        m, b = self.model, self.eng.slots
+        cond = m.prepare_conditioning(DynamicBatcher._batched_cond_dict(_SingleView(m), [req]),
+                                      cfg_scale=req.cfg_scale)
+        r = prepare_request(m.config, cond, None, req.max_new_tokens, req.cfg_scale, 1, req.sampling, [req.seed],
+                            m.dtype, False, True, m.device, self.eng.prefill_len, self.eng.delayed_len)
+        if r.statics.cache_len > self.eng.cache_len:
+            _fail(f"engine reference: cache {r.statics.cache_len} > the engine's {self.eng.cache_len}")
+        c = build_prefill_fn(r.statics)(m.params, r.cond_padded, r.delayed_init, 1, r.pad_amount, req.cfg_scale,
+                                        r.generators)
+        rows = torch.tensor([0] * b + [1] * b, device=m.device)  # cond rows, then uncond rows
+        k = c.cache
+        c.cache = KVCache(k=k.k[:, rows].contiguous(), v=k.v[:, rows].contiguous(),
+                          k_scale=k.k_scale[:, rows].contiguous(), v_scale=k.v_scale[:, rows].contiguous())
+        c.delayed_codes = c.delayed_codes.repeat(b, 1, 1)
+        c.stopping, c.remaining_steps = c.stopping.repeat(b), c.remaining_steps.repeat(b)
+        c.stop_offset, c.generators = c.stop_offset.repeat(b), c.generators * b
+        # a join at batch step j: decode from cache slot P + j, RoPE at the
+        # request's own positions, the slots [P, P + j) masked
+        c.steps_done = join_step
+        gap = torch.full((2 * b,), join_step, dtype=torch.int32, device=m.device)
+        return c, dataclasses.replace(r.statics, batch_size=b), r.pad_amount[rows], join_step + r.max_steps, gap
+
+    def codes(self, req, join_step: int = 0) -> np.ndarray:
+        """The request's greedy codes [n_q, T], joined at batch step ``join_step``."""
+        from zonos_tpu_torch.runtime.generate import postprocess_codes_batched
+        from zonos_tpu_torch.runtime.streaming import build_segment_fn
+
+        c, statics, pad, max_steps, gap = self._start(req, join_step)
+        c, _status, _codes = build_segment_fn(statics)(self.model.params, c, pad, req.cfg_scale, max_steps=max_steps,
+                                                       segment_end=2**30, pos_offset=gap, gap_len=gap)
+        stop = c.stop_offset.cpu().numpy()
+        out, _lengths = postprocess_codes_batched(c.delayed_codes.cpu().numpy(), np.where(stop >= 0, stop, c.offset),
+                                                  self.model.config)
+        return out[0]
+
+    def forced(self, req, codes: np.ndarray, join_step: int = 0) -> dict:
+        """Teacher forcing of codes [n_q, T]: the prefill's pick, then each
+        step's input frame taken from codes; for every (step, codebook)
+        whose token is a code (< 1024), is it the reference's greedy pick
+        (after the repetition penalty), and if not, how far below the top
+        logit it lies."""
+        from zonos_tpu_torch.ops.delay_pattern import apply_delay_pattern_np
+        from zonos_tpu_torch.ops.sampling import apply_repetition_penalty
+        from zonos_tpu_torch.runtime.generate import _context_slice, _decode_logits
+        from zonos_tpu_torch.runtime.streaming import _make_bias
+
+        m, sp = self.model, req.sampling
+        cfg = m.config
+        picks = []
+
+        def pick(logits, delayed, o):
+            ctx, valid = _context_slice(delayed, o, sp.repetition_penalty_window)
+            picks.append(apply_repetition_penalty(logits, ctx, sp.repetition_penalty, sp.repetition_penalty_window,
+                                                  valid_len=valid)[0].float().cpu())
+
+        # the prefill's pick: the same prefill again, its last position's logits
+        from zonos_tpu_torch.runtime import streaming
+        sample = streaming.sample_from_logits
+        first = []
+        streaming.sample_from_logits = lambda logits, *a, **k: (first.append(logits), sample(logits, *a, **k))[1]
+        try:
+            c, statics, pad, _max_steps, gap = self._start(req, join_step)
+        finally:
+            streaming.sample_from_logits = sample
+        n_q, t = codes.shape
+        fd = torch.as_tensor(apply_delay_pattern_np(codes[None].astype(np.int32), cfg.masked_token_id)[0],
+                             device=m.device)  # delayed index o holds codebook k's frame o - 1 - k
+        d = c.delayed_codes
+        picks.append(first[0][0].float().cpu())  # the prefill samples with no bias and no penalty
+        d[:, :, 1] = fd[:, 1]
+        bias = _make_bias(statics, m.device)
+        for o in range(2, t + 1):
+            logits, c.cache = _decode_logits(m.params, statics, d[:, :, o - 1:o], c.cache,
+                                             statics.prefill_len + join_step + o - 2, pad, req.cfg_scale,
+                                             pos_offset=gap, gap_len=gap)
+            pick(logits + bias, d, o)
+            d[:, :, o] = fd[:, o]
+        agree = compared = 0
+        worst = 0.0
+        for j, x in enumerate(picks):  # pick j chose delayed index j + 1
+            for k in range(n_q):
+                f = j - k
+                if 0 <= f < t and codes[k, f] < 1024:
+                    compared += 1
+                    top = int(torch.argmax(x[k]))
+                    agree += top == int(codes[k, f])
+                    worst = max(worst, float(x[k, top] - x[k, int(codes[k, f])]))
+        return {"compared": compared, "agree": agree, "worst_gap": worst}
+
+
+class JoinTap:
+    """Records the batch step at which each request joins a continuous
+    engine, keyed by its row generator's initial seed (``of``), by wrapping
+    the join of every epoch that starts while the tap is open."""
+
+    def __init__(self):
+        self.steps: dict[int, int] = {}
+
+    def __enter__(self):
+        from zonos_tpu_torch.serving import continuous
+
+        self._module, self._fns = continuous, continuous.compiled_continuous_fns
+
+        def fns(statics):
+            start, segment, prefill_b1, join, kill = self._fns(statics)
+
+            def join_recorded(bc, c1, *args, **kw):
+                self.steps[c1.generators[0].initial_seed()] = bc.steps_done
+                return join(bc, c1, *args, **kw)
+
+            return start, segment, prefill_b1, join_recorded, kill
+
+        continuous.compiled_continuous_fns = fns
+        return self
+
+    def __exit__(self, *exc):
+        self._module.compiled_continuous_fns = self._fns
+
+    def of(self, req, device) -> int:
+        from zonos_tpu_torch.runtime.generate import row_generators
+
+        return self.steps[row_generators(int(req.seed) & 0x7FFFFFFF, 1, device)[0].initial_seed()]
+
+
+class CodeTap:
+    """Records, per request, the sanitized codes each chunk the engine ships
+    was decoded from, in ship order: the request's codes as the engine made
+    them. It wraps the engine's two PCM functions and its ship queue."""
+
+    def __init__(self, eng):
+        self.codes: dict[int, list] = {}
+        self._pieces = {}
+        quantum, solo, put = eng._quantum_pcm, eng._solo_pcm, eng._ship_q.put
+        w, f = eng._quantum_frames, eng._solo_frames
+
+        def tap_quantum(device_codes, lo0, total, starts, bnds):
+            pcm = quantum(device_codes, lo0, total, starts, bnds)
+            self._pieces[id(pcm)] = device_codes[:, :, int(lo0):int(lo0) + w].cpu().numpy()
+            return pcm
+
+        def tap_solo(device_codes, slot, lo0, total, bnd):
+            pcm = solo(device_codes, slot, lo0, total, bnd)
+            self._pieces[id(pcm)] = device_codes[int(slot), :, int(lo0):int(lo0) + f].cpu().numpy()
+            return pcm
+
+        def tap_put(item, *a, **k):
+            if item is not None and item[0] == "pcm":
+                _, pcm, rows, lo0, _sr = item
+                piece = self._pieces.pop(id(pcm))
+                for req, slot, lo, hi in rows:
+                    self.codes.setdefault(id(req), []).append(piece[slot, :, lo - lo0:hi - lo0])
+            elif item is not None and item[0] == "solo":
+                _, pcm, req, lo0, base, hi, _sr = item
+                self.codes.setdefault(id(req), []).append(self._pieces.pop(id(pcm))[:, base - lo0:hi - lo0])
+            return put(item, *a, **k)
+
+        eng._quantum_pcm, eng._solo_pcm, eng._ship_q.put = tap_quantum, tap_solo, tap_put
+
+    def of(self, req) -> np.ndarray:
+        return np.concatenate(self.codes.get(id(req), []), axis=-1)
+
+
+def _phase_server(card: str, single_rtf: float, model_h):
+    """``python -m zonos_tpu_torch.serving.server`` as users start it, in a
+    thread of this process (so the launch counters can be read), on the
+    flagship transformer read from a reference checkpoint and quantized to
+    int8: the routes, single requests (pipeline.tts), two at once, the
+    continuous engine (ZONOS_BATCHING=1) and the dynamic batcher
+    (ZONOS_CONTINUOUS=0), each with its launch counts checked exactly; greedy
+    codes of the engine against generate; then phase 8's hybrid through an
+    engine of 4 slots."""
+    import base64
+    import http.client
+    import socket
+
+    from zonos_tpu_torch.audio.io import write_wav
+    from zonos_tpu_torch.config import zonos_v01_transformer_config
+    from zonos_tpu_torch.models.zonos import Zonos
+    from zonos_tpu_torch.ops import cuda_attention as A
+    from zonos_tpu_torch.ops import cuda_matmul as M
+    from zonos_tpu_torch.ops.sampling import SamplingParams
+    from zonos_tpu_torch.runtime.generate import generate
+    from zonos_tpu_torch.serving import model_manager, server
+    from zonos_tpu_torch.serving.batcher import DynamicBatcher, TTSRequest
+    from zonos_tpu_torch.serving.continuous import ContinuousEngine, _SingleView
+    from zonos_tpu_torch.serving.pipeline import prepare_generation_params
+    from zonos_tpu_torch.utils.export import save_reference_checkpoint
+
+    kernels = (M.int8_matmul, A.attn_core_int8, M.fused_mlp_int8)
+    cfg = zonos_v01_transformer_config()
+    L = cfg.backbone.n_layer
+
+    def reset():
+        for k in kernels:
+            k.launches = 0
+
+    def counts():
+        return {k.__name__: k.launches for k in kernels}
+
+    def expected(steps, prefills, layers=L, attn_layers=L):
+        # per decode step: in_proj + out_proj of every layer and the heads on
+        # K1, every MLP on K3, K2 in the attention layers; per prefill the
+        # last position's heads on K1
+        return {"int8_matmul": steps * (2 * layers + 1) + prefills, "attn_core_int8": steps * attn_layers,
+                "fused_mlp_int8": steps * layers}
+
+    def check(label, got, want):
+        print(f"phase10 {label} launches:", json.dumps(got), "expected:", json.dumps(want), flush=True)
+        if got != want:
+            _fail(f"phase 10 {label}: launch counts {got} != expected {want}")
+
+    total = {k.__name__: 0 for k in kernels}
+
+    def add(c):
+        for k, v in c.items():
+            total[k] += v
+
+    env_keys = ("ZONOS_BATCHING", "ZONOS_CONTINUOUS", "ZONOS_PLATFORM", "ZONOS_TINY_MODEL")
+    saved_env = {k: os.environ.get(k) for k in env_keys}
+    cwd = os.getcwd()
+    result = {"card": card}
+    thread = None
+    with tempfile.TemporaryDirectory() as ckpt, tempfile.TemporaryDirectory() as work:
+        try:
+            seeded = Zonos.from_config(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
+            save_reference_checkpoint(ckpt, seeded.params, seeded.config)
+            del seeded
+            torch.cuda.empty_cache()
+            with open(os.path.join(work, "configmodel.txt"), "w") as f:
+                f.write(f"PATH_MODEL_TRANSFORMER = {ckpt}\n")
+            os.chdir(work)  # configmodel.txt, cache/ and output_temp/ of the server
+            for k in env_keys:
+                os.environ.pop(k, None)
+            with socket.socket() as sk:
+                sk.bind(("127.0.0.1", 0))
+                port = sk.getsockname()[1]
+            model_manager._CURRENT_MODEL = model_manager._CURRENT_NAME = None
+            server._SERVER = None
+            t0 = time.perf_counter()
+            thread = threading.Thread(target=server.main, args=(["--server", "127.0.0.1", "--port", str(port)],),
+                                      daemon=True)
+            thread.start()
+            while server._SERVER is None:
+                if not thread.is_alive():
+                    _fail("phase 10: the server exited before it listened")
+                if time.perf_counter() - t0 > 600:
+                    _fail("phase 10: the server did not listen within 600 s")
+                time.sleep(0.05)
+            _http(port, "/health")
+            result["server_start_s"] = time.perf_counter() - t0
+            print(f"phase10 server start (checkpoint load, int8 quantize, listen): {result['server_start_s']:.2f} s",
+                  flush=True)
+            model = model_manager._CURRENT_MODEL
+            hop, sr = model.autoencoder.config.hop_length, model.autoencoder.sampling_rate
+            steps_log = []
+            generate_audio = model.generate_audio
+
+            def recorded(*args, **kw):  # the decode steps of every generate_audio the server runs
+                stats = kw.pop("stats", None)
+                stats = {} if stats is None else stats
+                out = generate_audio(*args, stats=stats, **kw)
+                steps_log.append(stats["decode_steps"])
+                return out
+
+            model.generate_audio = recorded
+            stream_steps = []
+            model_stream = model.stream
+
+            def recorded_stream(*args, **kw):  # the decode steps of every stream the server runs
+                stats = {}
+                yield from model_stream(*args, stats=stats, **kw)
+                stream_steps.append(stats["decode_steps"])
+
+            model.stream = recorded_stream
+
+            for path in ("/health", "/models", "/languages", "/conditioners", "/ui_spec", "/metrics"):
+                _http(port, path)
+            _code, headers, data = _http(port, "/generate", {"text": "ping"})
+            rate, pcm = _wav(data)
+            if (rate, pcm.size, int(np.abs(pcm).max())) != (44100, 4410, 0):
+                _fail(f"phase 10: ping gave {pcm.size} samples at {rate} Hz")
+
+            # single requests through pipeline.tts
+            write_wav("speaker.wav", _voice(10.0, 24000, seed=21), 24000)
+            with open("speaker.wav", "rb") as f:
+                spk_b64 = base64.b64encode(f.read()).decode()
+            body = {"text": SERVER_TEXT, "seed": 7, "randomize_seed": False, "speaker_wav_base64": spk_b64}
+            reset()
+            steps_log.clear()
+            t = time.perf_counter()
+            _code, headers, first = _http(port, "/generate", body)
+            first_s = time.perf_counter() - t
+            meta = json.loads(headers["X-Zonos-Meta"])
+            rate, pcm = _wav(first)
+            _r, on_disk = _wav(open(meta["path"], "rb").read())
+            rms = float(np.sqrt(np.mean(pcm.astype(np.float64) ** 2)))
+            if rate != 44100 or meta["sample_rate"] != 44100 or pcm.size == 0 or not rms > 0 or on_disk.size != pcm.size:
+                _fail(f"phase 10: /generate gave {pcm.size} samples at {rate} Hz (file {on_disk.size}), rms {rms}")
+            again = _http(port, "/generate", body)[2]
+            if again != first:
+                _fail("phase 10: the same /generate body at a fixed seed gave different bytes")
+            _code, headers, speech = _http(port, "/v1/audio/speech", {"input": "Speak, friend.", "seed": 3})
+            if _wav(speech)[1].size == 0:
+                _fail("phase 10: /v1/audio/speech gave no audio")
+            bodies = [{"text": "A quiet night in Whiterun.", "seed": 11, "randomize_seed": False},
+                      {"text": "The dragon is near, hurry!", "seed": 12, "randomize_seed": False}]
+            t = time.perf_counter()
+            alone = [_http(port, "/generate", b)[2] for b in bodies]
+            alone_s = time.perf_counter() - t
+            t = time.perf_counter()
+            both = _parallel(lambda b: _http(port, "/generate", b)[2], [(b,) for b in bodies])
+            both_s = time.perf_counter() - t
+            same = [both[i] == alone[i] for i in range(2)]
+            print("phase10 two concurrent /generate bit-equal to each served alone:", same,
+                  f"({both_s:.2f} s at once, {alone_s:.2f} s one after the other)", flush=True)
+            result.update(pair_at_once_s=both_s, pair_one_after_other_s=alone_s)
+            if not all(same):
+                _fail(f"phase 10: concurrent requests differ from the same requests served alone: {same}")
+            single = counts()
+            check("single requests", single, expected(sum(steps_log), len(steps_log)))
+            add(single)
+            result.update(single_requests=len(steps_log), single_first_request_s=first_s,
+                          single_first_request_rtf=meta["rtf"], single_audio_s=pcm.size / 44100)
+
+            # /stream: chunked PCM16, time to the first chunk and to the end
+            reset()
+            conn = http.client.HTTPConnection("127.0.0.1", port, timeout=900)
+            t = time.perf_counter()
+            conn.request("POST", "/stream", json.dumps({"text": SERVER_TEXT, "seed": 8, "randomize_seed": False}))
+            resp = conn.getresponse()
+            if resp.status != 200 or resp.getheader("X-PCM-Format") != "s16le-mono":
+                _fail(f"phase 10: /stream answered {resp.status}")
+            head = resp.read(2)
+            ttfa = time.perf_counter() - t
+            stream = head + resp.read()
+            stream_s = time.perf_counter() - t
+            conn.close()
+            got = counts()
+            if len(stream_steps) != 1:
+                _fail(f"phase 10: /stream ran {len(stream_steps)} decodes")
+            check("stream", got, expected(stream_steps[0], 1))
+            add(got)
+            if len(stream) < 2 * hop or len(stream) % 2:
+                _fail(f"phase 10: /stream gave {len(stream)} bytes")
+            result.update(stream_ttfa_s=ttfa, stream_total_s=stream_s, stream_audio_s=len(stream) / 2 / 44100)
+            print("phase10 single requests:", json.dumps(result), flush=True)
+
+            # the continuous engine: four requests at once, four more while the epoch runs
+            os.environ["ZONOS_BATCHING"] = "1"
+            reset()
+
+            def engine_request(text, seed):
+                t = time.perf_counter()
+                _c, h, d = _http(port, "/generate", {"text": text, "seed": seed, "randomize_seed": False})
+                m = json.loads(h["X-Zonos-Meta"])
+                r, p = _wav(d)
+                if not m.get("batched") or r != 44100 or p.size == 0:
+                    _fail(f"phase 10: engine request {text!r}: {m}, {p.size} samples")
+                return {"text_chars": len(text), "audio_s": p.size / r, "rtf": m["rtf"],
+                        "wall_s": time.perf_counter() - t, "rms": float(np.sqrt(np.mean(p.astype(np.float64) ** 2)))}
+
+            t = time.perf_counter()
+            wave1 = [(text, 100 + i) for i, text in enumerate(ENGINE_WAVE1)]
+            out1 = []
+            longs = [threading.Thread(target=lambda a=a: out1.append(engine_request(*a))) for a in wave1[2:]]
+            for th in longs:
+                th.start()
+            shorts = _parallel(engine_request, wave1[:2])  # the 1 s requests end first, freeing their slots
+            wave2 = _parallel(engine_request, [(text, 200 + i) for i, text in enumerate(ENGINE_WAVE2)])
+            for th in longs:
+                th.join()
+            burst_s = time.perf_counter() - t
+            reqs = shorts + out1 + wave2
+            if len(reqs) != 8 or not all(r["rms"] > 0 for r in reqs):
+                _fail(f"phase 10: engine burst answered {len(reqs)} of 8 requests, or one was silent: {reqs}")
+            eng = server._BATCHER
+            if not isinstance(eng, ContinuousEngine):
+                _fail(f"phase 10: ZONOS_BATCHING=1 served through {type(eng).__name__}")
+            stats = dict(eng.stats)
+            print("phase10 engine stats:", json.dumps(stats), flush=True)
+            if stats["mid_epoch_joins"] < 1 or stats["slot_recycles"] < 1 or stats["requests"] != 8:
+                _fail(f"phase 10: no mid-epoch join or slot recycle: {stats}")
+            got = counts()
+            check("engine", got, expected(stats["steps"], stats["prefills"]))
+            add(got)
+            audio = sum(r["audio_s"] for r in reqs)
+            result["engine"] = {"requests": reqs, "burst_s": burst_s, "audio_s": audio,
+                                "audio_s_per_wall_s": audio / burst_s, "phase5_single_request_rtf": single_rtf,
+                                "steps": stats["steps"], "slots": eng.slots, "cache_len": eng.cache_len,
+                                "ms_per_step": burst_s * 1e3 / max(stats["steps"], 1)}
+            print("phase10 engine burst:", json.dumps(result["engine"]), flush=True)
+
+            result["greedy_parity"] = _greedy_parity(model, eng)
+            eng.close()
+            server._BATCHER = server._BATCHER_MODEL = None
+
+            # the dynamic batcher
+            os.environ["ZONOS_CONTINUOUS"] = "0"
+            reset()
+            steps_log.clear()
+            t = time.perf_counter()
+            dyn = _parallel(engine_request, [(text, 400 + i) for i, text in enumerate(ENGINE_WAVE2)])
+            dyn_s = time.perf_counter() - t
+            batcher = server._BATCHER
+            if not isinstance(batcher, DynamicBatcher) or batcher.stats["requests"] != 4:
+                _fail(f"phase 10: ZONOS_CONTINUOUS=0 served through {type(batcher).__name__}")
+            got = counts()
+            check("dynamic batcher", got, expected(sum(steps_log), len(steps_log)))
+            add(got)
+            result["batcher"] = {"stats": dict(batcher.stats), "wall_s": dyn_s,
+                                 "audio_s_per_wall_s": sum(r["audio_s"] for r in dyn) / dyn_s, "requests": dyn}
+            print("phase10 dynamic batcher:", json.dumps(result["batcher"]), flush=True)
+            if batcher.stats["batches"] >= 4:
+                _fail(f"phase 10: the dynamic batcher coalesced nothing: {batcher.stats}")
+            batcher.close()
+            server._BATCHER = server._BATCHER_MODEL = None
+        finally:
+            if server._SERVER is not None:
+                server._SERVER.shutdown()
+            if thread is not None:
+                thread.join(timeout=60)
+            server._SERVER = None
+            model_manager._CURRENT_MODEL = model_manager._CURRENT_NAME = None
+            os.chdir(cwd)
+            for k, v in saved_env.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+
+    # phase 8's hybrid through an engine of 4 slots
+    n_attn = sum(1 for i in range(model_h.config.backbone.n_layer) if i in model_h.config.backbone.attn_layer_idx)
+    eng = ContinuousEngine(model_h, slots=4)
+    reset()
+    try:
+        texts = ["Hello there.", "Stay awhile.", "Who goes there", "Good morning."]
+        t = time.perf_counter()
+        outs = _parallel(lambda text, i: (time.sleep(0.4 * i), eng.submit(TTSRequest(text=text, seed=500 + i,
+                                                                                      max_new_tokens=86)))[1],
+                         [(text, i) for i, text in enumerate(texts)])
+        hybrid_s = time.perf_counter() - t
+        stats = dict(eng.stats)
+    finally:
+        eng.close()
+    rms = [float(np.sqrt(np.mean(w.astype(np.float64) ** 2))) for w, _sr in outs]
+    if not all(r > 0 for r in rms) or not all(w.size > 0 for w, _sr in outs):
+        _fail(f"phase 10 hybrid engine: silent or empty answers, rms {rms}")
+    got = counts()
+    check("hybrid engine", got, expected(stats["steps"], stats["prefills"], layers=model_h.config.backbone.n_layer,
+                                        attn_layers=n_attn))
+    result["hybrid_engine"] = {"stats": stats, "wall_s": hybrid_s, "rms": rms,
+                               "audio_s_per_wall_s": sum(w.size for w, _ in outs) / 44100 / hybrid_s}
+    print("phase10 hybrid engine:", json.dumps(result["hybrid_engine"]), flush=True)
+    return total, result
+
+
+PHASE10_RESULT = "phase10 result:"
+
+
+def _phase_server_main(single_rtf: float) -> int:
+    """``--phase10 <phase 5 RTF>``: phase 10 in a process of its own (started
+    by ``_phase_server_process``), with the hybrid rebuilt as phase 8 made it
+    (seed 0, int8). Prints the launch counts as its last line."""
+    from zonos_tpu_torch.config import zonos_v01_hybrid_config
+    from zonos_tpu_torch.models.zonos import Zonos
+    from zonos_tpu_torch.ops import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.build_all()  # built by the parent: finds every library
+    card = _card_line()
+    model_h = Zonos.from_config(zonos_v01_hybrid_config(), seed=0, dtype=torch.bfloat16, device="cuda").quantize()
+    total, _result = _phase_server(card, single_rtf, model_h)
+    print(PHASE10_RESULT, json.dumps(total), flush=True)
+    return 0
+
+
+def _phase_server_process(single_rtf: float) -> dict:
+    """Phase 10 in a child process: its timings are not raised by the
+    profiler of phase 9, and its server threads and CUDA work share nothing
+    with this process's. The child's output is passed on line by line; it
+    must exit 0. Returns its launch counts."""
+    t = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--phase10", repr(single_rtf)],
+                            cwd=os.path.dirname(os.path.abspath(__file__)), stdout=subprocess.PIPE, text=True)
+    counts = None
+    try:
+        for line in proc.stdout:
+            print(line, end="", flush=True)
+            if line.startswith(PHASE10_RESULT):
+                counts = json.loads(line[len(PHASE10_RESULT):])
+        rc = proc.wait(timeout=900)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    print(f"phase10 process: exit {rc}, {time.perf_counter() - t:.1f} s", flush=True)
+    if rc != 0 or counts is None:
+        _fail(f"phase 10: the server phase exited {rc}")
+    return counts
+
+
+# ---------------------------------------------------------------------------
 # Phase 9: the profiler, last
 # ---------------------------------------------------------------------------
 
@@ -1141,6 +1977,7 @@ def main() -> int:
     k1 = _k1_cases(gen, flush, read_flush)
     k2 = _k2_cases(gen, flush, read_flush)
     k3 = dict(_k3_cases(gen, flush, read_flush))
+    _two_thread_check(gen)
     k4 = _k4_cases(gen, flush, read_flush)
     probe_counts, k56 = _k56_cases(gen, flush)
     del buf, flush, read_flush
@@ -1154,13 +1991,15 @@ def main() -> int:
     facade_counts, model4, cond4, result4 = _phase_facade_int4(card)
     _phase_voice_clone(card, model)
     hybrid_counts, model_h, cond_h, result_h = _phase_hybrid(card)
-    # last: once torch.profiler has run, host cost per op stays raised in the process
+    # last in this process: once torch.profiler has run, host cost per op stays raised in it
     _phase_profile("int8", model, cond, result["decode_ms_per_frame"])
     _phase_profile("int4", model4, cond4, result4["decode_ms_per_frame"])
     _phase_profile("hybrid int8", model_h, cond_h, result_h["decode_ms_per_frame"])
     del model, model4, model_h
+    torch.cuda.empty_cache()
+    server_counts = _phase_server_process(result["rtf"])
 
-    by_path = {"int8": counts, "int4": facade_counts, "hybrid_int8": hybrid_counts}
+    by_path = {"int8": counts, "int4": facade_counts, "hybrid_int8": hybrid_counts, "server": server_counts}
 
     def entry(name, source, replaces, rows, launches):
         main_row = rows[0]
@@ -1198,4 +2037,8 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:] == ["--parts"] and torch.cuda.is_available():
         sys.exit(_kernel_parts())
+    if sys.argv[1:] == ["--pair-streams"] and torch.cuda.is_available():
+        sys.exit(_pair_streams())
+    if sys.argv[1:2] == ["--phase10"] and torch.cuda.is_available():
+        sys.exit(_phase_server_main(float(sys.argv[2])))
     sys.exit(main())

@@ -38,9 +38,58 @@ def test_port_and_chip_smoke_import_without_jax():
     assert int(out.stdout.split()[0]) >= 15
 
 
+SERVING_MODULES = ["runtime.continuous", "serving.app_config", "serving.batcher", "serving.constants",
+                   "serving.continuous", "serving.metrics", "serving.model_manager", "serving.router",
+                   "serving.server", "serving.ui", "utils.compile_cache", "utils.sysinfo"]
+
+
+@pytest.mark.parametrize("module", SERVING_MODULES)
+def test_serving_modules_import_without_jax(module):
+    """Each serving module imports, and the server answers its routes' pure
+    parts, with jax and the JAX package blocked."""
+    code = textwrap.dedent(f"""
+        import sys
+        sys.modules["jax"] = sys.modules["flax"] = sys.modules["zonos_tpu"] = None
+        import importlib
+        mod = importlib.import_module("zonos_tpu_torch.{module}")
+        assert not any(n == "jax" or n.startswith(("jax.", "zonos_tpu.")) for n in sys.modules
+                       if sys.modules[n] is not None)
+        print("ok", mod.__name__)
+    """)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")
+
+
+def test_webui_is_the_ports_own_copy():
+    from zonos_tpu_torch.serving import server
+
+    page = os.path.join(os.path.dirname(server.__file__), "webui.html")
+    with open(page, encoding="utf-8") as f:
+        assert "/ui_spec" in f.read()
+
+
+def test_quantize_failure_is_raised_not_served_around(monkeypatch, tmp_path):
+    """model_manager lets a failing quantize() propagate: no serving without K1-K3."""
+    from zonos_tpu_torch.serving import model_manager
+
+    monkeypatch.setenv("ZONOS_PLATFORM", "cpu")
+    monkeypatch.setenv("ZONOS_TINY_MODEL", "1")
+    monkeypatch.setattr(model_manager, "_CURRENT_MODEL", None)
+    monkeypatch.setattr(model_manager, "_CURRENT_NAME", None)
+
+    def broken(self, bits=8):
+        raise RuntimeError("quantize failed")
+
+    monkeypatch.setattr(Zonos, "quantize", broken)
+    with pytest.raises(RuntimeError, match="quantize failed"):
+        model_manager.load_model_if_needed(config={"ZONOS_QUANTIZE": True})
+    assert model_manager._CURRENT_MODEL is None
+
+
 @pytest.mark.parametrize("entry", ["zonos", "dac", "generate", "facade", "generate_audio", "stream", "speaker",
                                    "default_speaker", "speaker_audio", "dac_encode", "tts", "hybrid", "from_local",
-                                   "from_pretrained"])
+                                   "from_pretrained", "model_manager", "server"])
 def test_entry_points_default_to_cuda(monkeypatch, tmp_path, entry):
     """Every entry point raises without a card unless the caller asks for the
     CPU. The facade's methods (prepare_conditioning, generate, generate_audio,
@@ -75,6 +124,18 @@ def test_entry_points_default_to_cuda(monkeypatch, tmp_path, entry):
             Zonos.from_local(str(tmp_path / "config.json"), str(tmp_path / "model.safetensors"))
         elif entry == "from_pretrained":
             Zonos.from_pretrained("Zyphra/Zonos-v0.1-hybrid", cache_dir=str(tmp_path))
+        elif entry == "model_manager":
+            from zonos_tpu_torch.serving import model_manager
+
+            monkeypatch.delenv("ZONOS_PLATFORM", raising=False)
+            monkeypatch.setattr(model_manager, "_CURRENT_MODEL", None)
+            model_manager.load_model_if_needed(config={})
+        elif entry == "server":
+            from zonos_tpu_torch.serving import server
+
+            monkeypatch.delenv("ZONOS_PLATFORM", raising=False)
+            monkeypatch.chdir(tmp_path)
+            server.main(["--no-preload", "--port", "0", "--server", "127.0.0.1"])
         else:
             next(streaming.generate_stream({}, tiny_transformer_config(), cond))
 

@@ -1,0 +1,206 @@
+"""The port's HTTP server (``serving/server.py``), live on 127.0.0.1.
+
+``main()`` runs in a thread with ``ZONOS_PLATFORM=cpu ZONOS_TINY_MODEL=1``
+(tiny random model, a tiny DAC swapped in), beside JAX's handler on another
+port. Every GET route, ping and the client errors give JAX's status codes,
+content types, headers and JSON keys for the same bodies; ``/generate``
+equals ``pipeline.tts`` on the same inputs; ``/stream``'s chunks concatenate
+to ``handle_stream``'s, and a stream reports its decode steps; two
+concurrent requests each equal their solo run;
+``ZONOS_BATCHING=1`` serves through the engine and, with
+``ZONOS_CONTINUOUS=0``, through the dynamic batcher.
+"""
+
+import io
+import json
+import os
+import threading
+import time
+import urllib.error
+import urllib.request
+import wave
+from http.server import ThreadingHTTPServer
+
+import pytest
+
+from tests.test_torch_engine import tiny_dac
+
+
+def _request(port, path, body=None, method=None):
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data,
+                                 method=method or ("GET" if body is None else "POST"))
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            return r.status, dict(r.headers), r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, dict(e.headers), e.read()
+
+
+@pytest.fixture(scope="module")
+def servers(tmp_path_factory):
+    from zonos_tpu.serving import model_manager as jmm
+    from zonos_tpu.serving import server as jsrv
+    from zonos_tpu_torch.serving import model_manager as tmm
+    from zonos_tpu_torch.serving import server as tsrv
+
+    saved_env = {k: os.environ.get(k) for k in ("ZONOS_PLATFORM", "ZONOS_TINY_MODEL")}
+    saved_state = (jmm._CURRENT_MODEL, jmm._CURRENT_NAME, tmm._CURRENT_MODEL, tmm._CURRENT_NAME)
+    cwd = os.getcwd()
+    os.chdir(tmp_path_factory.mktemp("torch_server"))
+    os.environ.update(ZONOS_PLATFORM="cpu", ZONOS_TINY_MODEL="1")
+    tmm._CURRENT_MODEL = jmm._CURRENT_MODEL = None
+    thread = threading.Thread(target=tsrv.main, args=(["--server", "127.0.0.1", "--port", "0", "--no-preload"],),
+                              daemon=True)
+    thread.start()
+    for _ in range(600):
+        if tsrv._SERVER is not None:
+            break
+        time.sleep(0.05)
+    model = tmm.load_model_if_needed(config=tsrv._APP_CONFIG)
+    model._autoencoder = tiny_dac()
+    jserver = ThreadingHTTPServer(("127.0.0.1", 0), jsrv.Handler)
+    threading.Thread(target=jserver.serve_forever, daemon=True).start()
+    yield tsrv, model, tsrv._SERVER.server_address[1], jserver.server_address[1]
+    tsrv._SERVER.shutdown()
+    jserver.shutdown()
+    thread.join(timeout=30)
+    tsrv._SERVER = None
+    os.chdir(cwd)
+    for k, v in saved_env.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
+    jmm._CURRENT_MODEL, jmm._CURRENT_NAME, tmm._CURRENT_MODEL, tmm._CURRENT_NAME = saved_state
+
+
+def _wav_frames(data: bytes):
+    with wave.open(io.BytesIO(data)) as w:
+        return w.getframerate(), w.getnframes(), w.getsampwidth()
+
+
+@pytest.mark.parametrize("path", ["/health", "/models", "/languages", "/conditioners", "/ui_spec", "/lexicon",
+                                  "/speakers", "/metrics", "/", "/no-such-route"])
+def test_get_routes_match_jax(servers, path):
+    _tsrv, _model, port, jport = servers
+    code, headers, body = _request(port, path)
+    jcode, jheaders, jbody = _request(jport, path)
+    assert code == jcode
+    assert headers["Content-Type"] == jheaders["Content-Type"]
+    if headers["Content-Type"] == "application/json":
+        got, ref = json.loads(body), json.loads(jbody)
+        assert got.keys() == ref.keys()
+        if path in ("/health", "/models", "/conditioners", "/ui_spec", "/lexicon", "/speakers", "/no-such-route"):
+            assert got == ref
+        if path == "/languages":
+            assert got["languages"] == ref["languages"]
+    elif path == "/":
+        assert b"/ui_spec" in body and b"/generate" in body
+
+
+def test_ping_and_client_errors_match_jax(servers):
+    _tsrv, _model, port, jport = servers
+    cases = [("/generate", {"text": "ping"}), ("/generate", {"text": "hi", "speaker": "nobody"}),
+             ("/generate", {"text": "hi", "speaker": "../etc"}),
+             ("/v1/audio/speech", {"input": "hi", "response_format": "mp3"}),
+             ("/speakers", {"name": "x"}), ("/speakers", {"name": "bad name!", "wav_base64": "AAAA"}),
+             ("/lexicon", {"entries": {"zonos": "zoʊnɒs"}}), ("/lexicon", {"clear": True}), ("/nowhere", {})]
+    for path, body in cases:
+        got, ref = _request(port, path, body), _request(jport, path, body)
+        assert got[0] == ref[0], (path, body)
+        for h in ("Content-Type", "X-Zonos-Meta"):
+            assert got[1].get(h) == ref[1].get(h), (path, body, h)
+        if got[1]["Content-Type"] == "application/json":
+            assert json.loads(got[2]).keys() == json.loads(ref[2]).keys()
+        else:
+            assert got[2] == ref[2]  # ping: the same 100 ms of silence
+
+
+def test_generate_equals_pipeline_tts(servers):
+    tsrv, model, port, _jport = servers
+    from zonos_tpu_torch.serving.pipeline import tts
+
+    body = {"text": "hi there", "seed": 3, "randomize_seed": False}
+    code, headers, data = _request(port, "/generate", body)
+    assert code == 200 and headers["Content-Type"] == "audio/wav"
+    meta = json.loads(headers["X-Zonos-Meta"])
+    assert set(meta) == {"path", "rtf", "sample_rate"}  # JAX's handle_generate keys
+    sr, frames, width = _wav_frames(data)
+    assert (sr, width) == (44100, 2) and frames > 0
+    _path, wav, sr2, _rtf = tts(model, "hi there", seed=3, randomize_seed=False)
+    assert data == tsrv._wav_bytes(wav, sr2)
+    assert _request(port, "/generate", body)[2] == data  # a fixed seed gives the same bytes
+
+
+def test_stream_chunks_concatenate_to_handle_stream(servers):
+    tsrv, _model, port, _jport = servers
+    body = {"text": "stream me", "seed": 5, "randomize_seed": False}
+    code, headers, data = _request(port, "/stream", body)
+    assert code == 200
+    assert (headers["Transfer-Encoding"], headers["X-Sample-Rate"], headers["X-PCM-Format"]) == (
+        "chunked", "44100", "s16le-mono")
+    assert data == b"".join(c for c, _ in tsrv.handle_stream(dict(body)))
+    assert len(data) > 0 and len(data) % 2 == 0
+
+
+def test_stream_reports_its_decode_steps(servers):
+    """``Zonos.stream(stats=...)`` gives the decode steps it ran (phase 10
+    checks the /stream launch counts against them): those of
+    ``generate_audio`` on the same request."""
+    import numpy as np
+
+    from zonos_tpu_torch.conditioning.cond_dict import make_cond_dict
+
+    _tsrv, model, _port, _jport = servers
+    cond = model.prepare_conditioning(make_cond_dict(text="count my steps", speaker=np.zeros((1, 1, 128), np.float32)))
+    streamed, whole = {}, {}
+    chunks = list(model.stream(cond, max_new_tokens=24, seed=3, stats=streamed))
+    model.generate_audio(cond, max_new_tokens=24, seed=3, stats=whole)
+    assert len(chunks) >= 1 and streamed["decode_steps"] == whole["decode_steps"] > 0
+
+
+def test_two_concurrent_requests_equal_their_solo_runs(servers):
+    _tsrv, _model, port, _jport = servers
+    bodies = [{"text": "first voice", "seed": 11, "randomize_seed": False},
+              {"text": "the second one", "seed": 12, "randomize_seed": False}]
+    solo = [_request(port, "/generate", b)[2] for b in bodies]
+    got = {}
+    threads = [threading.Thread(target=lambda i: got.__setitem__(i, _request(port, "/generate", bodies[i])), args=(i,))
+               for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    assert [got[i][0] for i in range(2)] == [200, 200]
+    assert [got[i][2] for i in range(2)] == solo
+
+
+@pytest.mark.parametrize("continuous", ["1", "0"])
+def test_batching_paths(servers, monkeypatch, continuous):
+    tsrv, _model, port, _jport = servers
+    monkeypatch.setenv("ZONOS_BATCHING", "1")
+    monkeypatch.setenv("ZONOS_CONTINUOUS", continuous)
+    try:
+        got = {}
+        bodies = [{"text": f"batched request {i}", "seed": 20 + i, "randomize_seed": False} for i in range(2)]
+        threads = [threading.Thread(target=lambda i: got.__setitem__(i, _request(port, "/generate", bodies[i])),
+                                    args=(i,)) for i in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        for i in range(2):
+            code, headers, data = got[i]
+            assert code == 200
+            meta = json.loads(headers["X-Zonos-Meta"])
+            assert meta["batched"] is True and meta["sample_rate"] == 44100
+            assert _wav_frames(data)[1] > 0
+        kind = "ContinuousEngine" if continuous == "1" else "DynamicBatcher"
+        assert type(tsrv._BATCHER).__name__ == kind and tsrv._BATCHER.stats["requests"] == 2
+        code, headers, data = _request(port, "/stream", bodies[0])
+        assert code == 200 and len(data) > 0
+    finally:
+        if tsrv._BATCHER is not None:
+            tsrv._BATCHER.close()
+        tsrv._BATCHER = tsrv._BATCHER_MODEL = None

@@ -39,6 +39,8 @@
 #include <math_constants.h>
 #include <stdint.h>
 
+#include <mutex>
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -352,7 +354,9 @@ int launch(const void* q, const void* kq, const void* ks, const void* vq, const 
            int B, int Hkv, int G, int S, int cluster, int share_cap, int stage, int smem_bytes,
            float sm_scale, cudaStream_t st)
 {
+    static std::mutex mutex;  // ctypes releases the GIL: two host threads may launch at once
     static bool configured = false;  // attributes are per kernel, set once
+    const std::lock_guard<std::mutex> lock(mutex);
     if (!configured) {
         cudaError_t e = cudaFuncSetAttribute(attn_cluster<GM>, cudaFuncAttributeMaxDynamicSharedMemorySize, 232448);
         if (e == cudaSuccess)

@@ -15,6 +15,10 @@
 // function (the "attributes set" flags, the map cache) would otherwise be one
 // process-wide object for all of them, so a second library would skip
 // setting its own kernel's attributes and fail to launch it.
+//
+// The host state here (the map cache, the "attributes set" flags) is written
+// under host_mutex: the Python wrappers call in through ctypes, which releases
+// the GIL, so two threads of a server can be inside a library at once.
 
 #pragma once
 
@@ -25,6 +29,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <mutex>
+
 namespace zt {
 namespace {
 
@@ -33,6 +39,8 @@ namespace cg = cooperative_groups;
 constexpr int MAX_CLUSTER = 16;    // the non-portable cluster limit
 constexpr int BAR_BYTES = 128;     // room for the ring's mbarriers, before the ring
 constexpr int MAX_SMEM = 232448;   // 227 KB, what one block may use on an H100
+
+std::mutex host_mutex;  // guards this library's host state: the map cache and the attribute flags
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p)
 {
@@ -117,6 +125,7 @@ inline int weight_map(const void* w, long long ld, int rows, int cols, int box_c
         int rows, cols, box_cols, box_rows;
         CUtensorMap map;
     };
+    const std::lock_guard<std::mutex> lock(host_mutex);
     static Entry maps[256];
     static int count = 0, next = 0;
     for (int i = 0; i < count; ++i) {
@@ -162,6 +171,7 @@ inline int weight_map(const void* w, long long ld, int rows, int cols, int box_c
 template <typename Kernel>
 inline int configure_once(Kernel kernel, bool& done)
 {
+    const std::lock_guard<std::mutex> lock(host_mutex);
     if (done) return 0;
     cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
     if (e == cudaSuccess) e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);

@@ -296,15 +296,17 @@ class Zonos:
         first_chunk_frames: int = 16,
         chunk_frames: int = 64,
         kv_int8: bool | None = None,
+        stats: dict | None = None,
     ):
         """Streaming generation: yields (pcm float32 [T], sample_rate) chunks,
-        the first after the prefill and ``first_chunk_frames`` decode steps."""
+        the first after the prefill and ``first_chunk_frames`` decode steps.
+        A ``stats`` dict receives ``decode_steps`` when the stream ends."""
         return streaming.generate_stream(
             self.params, self.config, prefix_conditioning, autoencoder=self.autoencoder,
             audio_prefix_codes=audio_prefix_codes, max_new_tokens=max_new_tokens, cfg_scale=cfg_scale,
             sampling_params=sampling_params, seed=seed, first_chunk_frames=first_chunk_frames,
             chunk_frames=chunk_frames, dtype=self.dtype,
-            kv_int8=self.default_kv_int8 if kv_int8 is None else kv_int8, device=self.device,
+            kv_int8=self.default_kv_int8 if kv_int8 is None else kv_int8, device=self.device, stats=stats,
         )
 
     @property

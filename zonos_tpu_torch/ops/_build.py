@@ -97,6 +97,16 @@ def load(name: str) -> ctypes.CDLL:
         return _LIBS[name]
 
 
+_COUNT_LOCK = threading.Lock()
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches``. Under a lock: a server calls the
+    wrappers from several threads, and ``+=`` on an attribute is not atomic."""
+    with _COUNT_LOCK:
+        wrapper.launches += 1
+
+
 def check(err: int, what: str) -> None:
     """Raise if a C entry point returned a non-zero ``cudaGetLastError()``."""
     if err != 0:

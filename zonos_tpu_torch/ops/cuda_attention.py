@@ -126,7 +126,7 @@ def attn_core_int8(
         plan.stage, plan.smem_bytes, sm_scale_f32(dh), ctypes.c_void_p(torch.cuda.current_stream().cuda_stream),
     )
     _build.check(err, "attn_core_int8")
-    attn_core_int8.launches += 1
+    _build.count_launch(attn_core_int8)
     return out
 
 

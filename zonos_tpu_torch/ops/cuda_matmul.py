@@ -6,7 +6,7 @@
 * K3 ``fused_mlp_int8`` / ``fused_mlp_int8_split`` (``csrc/fused_mlp_int8.cu``)
   replace the Pallas ``fused_mlp_int8`` / ``fused_mlp_int8_split``: the
   gated-SiLU MLP with int8 weights, two launches per call (fc1 and the gate
-  by F slices into a per-device h scratch, then fc2 on K1's body as a
+  by F slices into an h scratch kept per (device, stream), then fc2 on K1's body as a
   programmatic dependent; ``fused_mlp_plan``).
 * K4 ``int4_matmul`` (``csrc/int4_matmul.cu``) replaces the Pallas
   ``int4_matmul``: y = x @ dequant(q4, s4) for 1-16 rows, group-wise int4, one
@@ -20,7 +20,8 @@ card's limits.
 
 Each wrapper takes its plain PyTorch version for tensors on the CPU, and only
 there; for CUDA tensors it launches the kernel or raises. ``launches`` on each
-wrapper counts wrapper calls that launched. The plain versions compute in the
+wrapper counts wrapper calls that launched (``_build.count_launch``, under a
+lock: the server calls the wrappers from several threads). The plain versions compute in the
 activation dtype's values with f32 sums: at float32 they equal the JAX
 package's XLA path, and at bf16 they repeat the kernels' arithmetic (exact
 int8 x bf16 products, f32 sums, h rounded to bf16 before fc2).
@@ -32,6 +33,7 @@ import ctypes
 import dataclasses
 import functools
 import math
+import threading
 
 import torch
 
@@ -184,7 +186,7 @@ def int8_matmul(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor) -> torch
     err = _lib().zt_int8_matmul(_ptr(x), _ptr(wq), wq.stride(0), _ptr(scale), _ptr(y), b, k, n,
                                 plan.cluster, plan.kc, plan.smem_bytes, _stream())
     _build.check(err, "int8_matmul")
-    int8_matmul.launches += 1
+    _build.count_launch(int8_matmul)
     return y
 
 
@@ -279,18 +281,27 @@ def fused_mlp_stages(d: int) -> list[list[tuple[int, int]]]:
     return out
 
 
-_H_SCRATCH: dict[int, torch.Tensor] = {}
+_H_SCRATCH: dict[tuple[int, int], torch.Tensor] = {}  # (device, stream) → K3's h
+_H_RESERVED: dict[int, int] = {}  # device → elements reserve_mlp_scratch asked for
+_MLP_LOCK = threading.Lock()
 
 
-def _h_scratch(device: torch.device, numel: int) -> torch.Tensor:
-    """K3's h [B, F] bf16, one buffer per device kept across calls (grown when
-    a call needs more): written by fc1 and read by fc2 of the same call, which
-    run in order on the caller's stream."""
-    idx = device.index if device.index is not None else torch.cuda.current_device()
-    buf = _H_SCRATCH.get(idx)
+def _device_index(device: torch.device) -> int:
+    return device.index if device.index is not None else torch.cuda.current_device()
+
+
+def _h_scratch(device: torch.device, stream: int, numel: int) -> torch.Tensor:
+    """K3's h [B, F] bf16, one buffer per (device, stream) kept across calls:
+    fc1 writes it and fc2 of the same call reads it, in order on that stream.
+    A new stream's buffer is sized to what ``reserve_mlp_scratch`` reserved
+    for the device; a call that needs more grows it. Call with _MLP_LOCK
+    held, and launch fc1 + fc2 before releasing it, so that no other
+    thread's call on the same stream falls between them."""
+    idx = _device_index(device)
+    buf = _H_SCRATCH.get((idx, stream))
     if buf is None or buf.numel() < numel:
-        buf = torch.empty(numel, dtype=torch.bfloat16, device=device)
-        _H_SCRATCH[idx] = buf
+        buf = torch.empty(max(numel, _H_RESERVED.get(idx, 0)), dtype=torch.bfloat16, device=device)
+        _H_SCRATCH[(idx, stream)] = buf
     return buf
 
 
@@ -298,8 +309,12 @@ def reserve_mlp_scratch(device, f: int) -> torch.Tensor:
     """Size K3's h scratch on ``device`` for MLPs up to width ``f`` at any B
     K3 takes, so that no later call grows (and moves) it: a model whose MLPs
     have two widths (the hybrid: 4096 and 8192) calls this once, with the
-    larger."""
-    return _h_scratch(torch.device(device), MAX_ROWS * f)
+    larger. Sizes the current stream's buffer, and every later stream's."""
+    device = torch.device(device)
+    with _MLP_LOCK:
+        idx = _device_index(device)
+        _H_RESERVED[idx] = max(_H_RESERVED.get(idx, 0), MAX_ROWS * f)
+        return _h_scratch(device, torch.cuda.current_stream(device).cuda_stream, _H_RESERVED[idx])
 
 
 def _launch_mlp(x, w1y, w1g, ld1, s1y, s1g, w2q, s2, f):
@@ -312,13 +327,16 @@ def _launch_mlp(x, w1y, w1g, ld1, s1y, s1g, w2q, s2, f):
     plan = fused_mlp_plan(b, d, f, d_out, sms=_sm_count(x.device))
     _require(max(plan.fc1_smem_bytes, plan.fc2.smem_bytes) <= MAX_SMEM_BYTES,
              f"fused_mlp_int8: D {d}, F {f} at B {b} needs more than {MAX_SMEM_BYTES} bytes of shared memory")
-    h = _h_scratch(x.device, b * f)
     y = torch.empty((b, d_out), dtype=torch.float32, device=x.device)
-    err = _lib_mlp().zt_fused_mlp_int8(
-        _ptr(x), _ptr(w1y), _ptr(w1g), ld1, _ptr(s1y), _ptr(s1g), _ptr(w2q), _ptr(s2), _ptr(h), _ptr(y),
-        b, d, f, d_out, plan.fc1_slots, plan.fc1_smem_bytes, plan.fc2.cluster, plan.fc2.kc, plan.fc2.slots,
-        plan.fc2.smem_bytes, _stream(),
-    )
+    lib = _lib_mlp()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    with _MLP_LOCK:  # the scratch and the fc1 + fc2 pair that uses it, as one step
+        h = _h_scratch(x.device, stream, b * f)
+        err = lib.zt_fused_mlp_int8(
+            _ptr(x), _ptr(w1y), _ptr(w1g), ld1, _ptr(s1y), _ptr(s1g), _ptr(w2q), _ptr(s2), _ptr(h), _ptr(y),
+            b, d, f, d_out, plan.fc1_slots, plan.fc1_smem_bytes, plan.fc2.cluster, plan.fc2.kc, plan.fc2.slots,
+            plan.fc2.smem_bytes, ctypes.c_void_p(stream),
+        )
     _build.check(err, "fused_mlp_int8")
     return y
 
@@ -334,7 +352,7 @@ def fused_mlp_int8(x, w1q, s1, w2q, s2):
     _check_w(w1q, (d, 2 * f), "fused_mlp_int8")
     s1 = _check_s(s1, 2 * f, "fused_mlp_int8").reshape(-1)
     y = _launch_mlp(x, w1q, w1q[:, f:], 2 * f, s1, s1[f:], w2q, s2, f)
-    fused_mlp_int8.launches += 1
+    _build.count_launch(fused_mlp_int8)
     return y
 
 
@@ -353,7 +371,7 @@ def fused_mlp_int8_split(x, w1yq, s1y, w1gq, s1g, w2q, s2):
     _check_s(s1y, f, "fused_mlp_int8_split")
     _check_s(s1g, f, "fused_mlp_int8_split")
     y = _launch_mlp(x, w1yq, w1gq, f, s1y, s1g, w2q, s2, f)
-    fused_mlp_int8_split.launches += 1
+    _build.count_launch(fused_mlp_int8_split)
     return y
 
 
@@ -474,7 +492,7 @@ def int4_matmul(x: torch.Tensor, q4: torch.Tensor, s4: torch.Tensor) -> torch.Te
     err = _lib_int4().zt_int4_matmul(_ptr(x), _ptr(q4), _ptr(s4), _ptr(y), b, k, n, 2 * half,
                                      plan.cluster, plan.gpr, plan.smem_bytes, _stream())
     _build.check(err, "int4_matmul")
-    int4_matmul.launches += 1
+    _build.count_launch(int4_matmul)
     return y
 
 

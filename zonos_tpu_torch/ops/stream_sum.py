@@ -56,7 +56,7 @@ def grid_sum_once(w: torch.Tensor, blk: int) -> torch.Tensor:
     out = torch.zeros((), dtype=torch.int32, device=w.device)
     err = _lib().zt_grid_sum(_ptr(w), w.numel(), blk * w.shape[1], _ptr(out), _stream())
     _build.check(err, "grid_sum_once")
-    grid_sum_once.launches += 1
+    _build.count_launch(grid_sum_once)
     return out
 
 
@@ -80,7 +80,7 @@ def manual_sum_once(w: torch.Tensor, blk: int) -> torch.Tensor:
     out = torch.zeros((), dtype=torch.int32, device=w.device)
     err = _lib().zt_manual_sum(_ptr(w), w.numel(), stage, blocks, _ptr(out), _stream())
     _build.check(err, "manual_sum_once")
-    manual_sum_once.launches += 1
+    _build.count_launch(manual_sum_once)
     return out
 
 

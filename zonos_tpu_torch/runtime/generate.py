@@ -99,21 +99,42 @@ class GenerateStatics:
     batch_size: int
     forbid_eos: bool = False
     kv_int8: bool = False
+    # Decode attention window: the leading cache slots a decode step attends
+    # (None: the whole cache). The continuous engine compacts its KV timeline
+    # and decodes on the smallest rung of a ladder that covers the live
+    # slots; write_index < attend_len at every step.
+    attend_len: int | None = None
+    # Per-row sampling: the prefill and segment take a RuntimeSamplingParams
+    # of [B] values; ``sampling`` then gives only top_k and the repetition
+    # window.
+    runtime_sampling: bool = False
+
+
+def _guide(logits: torch.Tensor, cfg_scale) -> torch.Tensor:
+    """CFG on stacked [cond; uncond] logits [2B, ...]: cfg_scale a float, or one per row [B]."""
+    cond, uncond = torch.chunk(logits, 2, dim=0)
+    if isinstance(cfg_scale, torch.Tensor) and cfg_scale.dim() == 1:
+        cfg_scale = cfg_scale.reshape((-1,) + (1,) * (logits.dim() - 1))
+    return uncond + (cond - uncond) * cfg_scale
 
 
 def _decode_logits(params, statics: GenerateStatics, x_tokens, cache, write_index: int, pad_amount,
-                   cfg_scale: float):
-    """One backbone step with CFG batch doubling → guided logits [B, n_q, Vh]."""
+                   cfg_scale, pos_offset=None, gap_len=None):
+    """One backbone step with CFG batch doubling → guided logits [B, n_q, Vh].
+
+    ``cfg_scale`` is a float or a [B] tensor (one per row). ``pos_offset`` and
+    ``gap_len`` ([2B] int32) are a joined slot's RoPE offset and dead cache
+    span after the prefill (``runtime.continuous``)."""
     cfg = statics.cfg
     x = embed_codes(params["embeddings"], x_tokens)  # [B, 1, D]
     x = torch.cat([x, x], dim=0)
     h, cache = backbone_forward(
         params["backbone"], cfg.backbone, x, cache,
-        write_start=write_index, pad_amount=pad_amount, attend_len=statics.cache_len,
+        write_start=write_index, pad_amount=pad_amount, attend_len=statics.attend_len or statics.cache_len,
+        pos_offset=pos_offset, gap_len=gap_len, gap_start=statics.prefill_len,
     )
     logits = apply_heads(params["heads"], h, cfg.codebook_dimension)[:, :, 0]
-    cond, uncond = torch.chunk(logits, 2, dim=0)
-    return uncond + (cond - uncond) * cfg_scale, cache
+    return _guide(logits, cfg_scale), cache
 
 
 def _context_slice(delayed: torch.Tensor, offset: int, window: int):

@@ -4,8 +4,12 @@
 ``build_prefill_fn`` runs the CFG-doubled prefill and samples the first
 frame; ``build_segment_fn`` decodes until a step bound or until every sample
 has drained its EOS staircase. JAX's ``lax.while_loop`` becomes a Python
-loop whose condition reads one flag back from the device per step; the
-delayed codes and the KV cache are updated in place.
+loop whose condition reads one flag back from the device per step (or, with
+``early_exit=False``, none: the continuous engine reads one status per
+segment); the delayed codes and the KV cache are updated in place. With
+``statics.runtime_sampling`` both sample each row with its own parameters
+(``RuntimeSamplingParams``), and the segment takes a joined slot's
+``pos_offset`` and ``gap_len``.
 
 ``generate_stream`` yields audio (or, without a codec, codes) segment by
 segment; ``generate_audio`` is the full-request path with the DAC of settled
@@ -23,7 +27,7 @@ import torch
 from zonos_tpu_torch import resolve_device
 from zonos_tpu_torch.models.backbone import backbone_forward, create_cache
 from zonos_tpu_torch.ops.delay_pattern import revert_delay_pattern
-from zonos_tpu_torch.ops.sampling import SamplingParams, sample_from_logits
+from zonos_tpu_torch.ops.sampling import SamplingParams, sample_from_logits, sample_from_logits_runtime
 from zonos_tpu_torch.runtime.generate import (
     AUDIO_BUCKET,
     MAX_REP_WINDOW,
@@ -33,6 +37,7 @@ from zonos_tpu_torch.runtime.generate import (
     _bucket,
     _context_slice,
     _decode_logits,
+    _guide,
     _sync,
     _write_frame,
     apply_heads,
@@ -59,7 +64,8 @@ def build_prefill_fn(statics: GenerateStatics):
     cfg = statics.cfg
     n_q = cfg.codebook_dimension
 
-    def prefill_fn(params, cond_emb, delayed_init, prefix_frames: int, pad_amount, cfg_scale, generators):
+    def prefill_fn(params, cond_emb, delayed_init, prefix_frames: int, pad_amount, cfg_scale, generators,
+                   rt_params=None):
         b = statics.batch_size
         n_prefix = statics.prefill_len - cond_emb.shape[1]
         prefix_emb = embed_codes(params["embeddings"], delayed_init[:, :, :n_prefix])
@@ -72,11 +78,12 @@ def build_prefill_fn(statics: GenerateStatics):
             params["backbone"], cfg.backbone, x, cache,
             write_start=0, pad_amount=pad_amount, attend_len=statics.prefill_len,
         )
-        logits0 = apply_heads(params["heads"], h[:, -1:, :], n_q)[:, :, 0]
-        c0, u0 = torch.chunk(logits0, 2, dim=0)
-        logits0 = u0 + (c0 - u0) * cfg_scale
-
-        next_token = sample_from_logits(logits0, statics.sampling, generators=generators)
+        logits0 = _guide(apply_heads(params["heads"], h[:, -1:, :], n_q)[:, :, 0], cfg_scale)
+        if statics.runtime_sampling:
+            next_token = sample_from_logits_runtime(logits0, rt_params, top_k=statics.sampling.top_k,
+                                                    generators=generators)
+        else:
+            next_token = sample_from_logits(logits0, statics.sampling, generators=generators)
         delayed = _write_frame(delayed_init.clone(), prefix_frames, next_token)
         dev = cond_emb.device
         return DecodeCarry(
@@ -113,26 +120,40 @@ def build_segment_fn(statics: GenerateStatics):
     cfg = statics.cfg
     n_q = cfg.codebook_dimension
     window = min(statics.sampling.repetition_penalty_window, MAX_REP_WINDOW)
-    use_rep = window > 0 and statics.sampling.repetition_penalty != 1.0
+    # Per-row penalties of 1.0 are exact identities, so with runtime sampling
+    # the context is gathered whenever the window is set.
+    use_rep = window > 0 and (statics.runtime_sampling or statics.sampling.repetition_penalty != 1.0)
 
-    def segment_fn(params, c: DecodeCarry, pad_amount, cfg_scale, max_steps: int, segment_end: int):
+    def segment_fn(params, c: DecodeCarry, pad_amount, cfg_scale, max_steps: int, segment_end: int,
+                   pos_offset=None, gap_len=None, rt_params=None, early_exit: bool = True):
+        """``early_exit`` stops as soon as every sample has drained, which reads
+        the device once per step; without it the step bounds alone decide,
+        and steps after a sample's drain leave its codes, stop offset and
+        lengths as they were."""
         dev = c.delayed_codes.device
         bias = _make_bias(statics, dev)
         cb = torch.arange(n_q, device=dev)[None, :]
-        while (c.offset < statics.delayed_len and c.steps_done < max_steps
-               and c.steps_done < segment_end and bool((c.remaining_steps > 0).any())):
+        while (c.offset < statics.delayed_len and c.steps_done < max_steps and c.steps_done < segment_end
+               and (not early_exit or bool((c.remaining_steps > 0).any()))):
             input_frame = c.delayed_codes[:, :, c.offset - 1:c.offset]
             logits, c.cache = _decode_logits(
                 params, statics, input_frame, c.cache, statics.prefill_len + c.steps_done, pad_amount, cfg_scale,
+                pos_offset=pos_offset, gap_len=gap_len,
             )
             logits = logits + bias
             ctx = valid = None
             if use_rep:
                 ctx, valid = _context_slice(c.delayed_codes, c.offset, window)
-            next_token = sample_from_logits(
-                logits, statics.sampling, generators=c.generators,
-                generated_tokens=ctx, generated_valid_len=valid,
-            )
+            if statics.runtime_sampling:
+                next_token = sample_from_logits_runtime(
+                    logits, rt_params, top_k=statics.sampling.top_k, generators=c.generators,
+                    generated_tokens=ctx, generated_valid_len=valid,
+                )
+            else:
+                next_token = sample_from_logits(
+                    logits, statics.sampling, generators=c.generators,
+                    generated_tokens=ctx, generated_valid_len=valid,
+                )
 
             eos_in_cb0 = next_token[:, 0] == cfg.eos_token_id
             remaining = torch.where(eos_in_cb0, torch.clamp(c.remaining_steps, max=n_q), c.remaining_steps)
@@ -198,6 +219,7 @@ def generate_stream(
     kv_int8: bool = False,
     on_progress=None,
     device=None,
+    stats: dict | None = None,
 ):
     """Yield (pcm_chunk [T] float32, sample_rate) as audio becomes available.
 
@@ -214,7 +236,9 @@ def generate_stream(
 
     Without an autoencoder the stream yields (None, sr) per segment and the
     final sanitized codes [B, n_q, L] last; ``on_progress(steps)`` is called
-    between segments and may return False to stop early.
+    between segments and may return False to stop early. A ``stats`` dict
+    receives the number of decode steps (``decode_steps``) when the stream
+    ends.
     """
     device = resolve_device(device)
     req = prepare_request(cfg, prefix_conditioning, audio_prefix_codes, max_new_tokens, cfg_scale, batch_size,
@@ -288,6 +312,8 @@ def generate_stream(
             emitted_frames = total
 
         if done:
+            if stats is not None:
+                stats["decode_steps"] = carry.steps_done
             return
         segment_end = steps + chunk_frames
 
