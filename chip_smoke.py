@@ -79,14 +79,36 @@ Phases; any failure exits non-zero:
      requests through the dynamic
      batcher; then the hybrid (as phase 8 makes it) through an engine of 4
      slots. Every path's launch counts of K1-K3 are checked exactly against
-     the decode steps and prefills it ran.
+     the decode steps and prefills it ran;
+ 11. training and speculative decode, in a process of its own
+     (``--phase11``, after phase 10), f32 with TF32 off: at 2 layers of full
+     width, the loss and every leaf's gradient of training.train.loss_fn on
+     the card against the CPU (loss within 1e-4 relative, gradient cosine
+     >= 0.9999), accum_steps=2 and remat=True against the plain step (1e-5),
+     and greedy generate_speculative equal to greedy generate; the LoRA
+     fine-tune of the flagship at full depth through
+     training.finetune_lora's run() (16 synthetic samples of 192-256
+     frames, rank 8, batch 4 x 256 frames, 10 steps: losses finite, the base
+     bit-unchanged, every B non-zero), the merged weights written as a
+     native checkpoint and read back, their logits against the adapter
+     applied unmerged, x.W + scale.(x.A).B (1e-4 relative), then
+     cast to bf16, quantized to int8 and driven through generate for 86
+     frames on K1-K3 (launch counts exact); speculative decode of that int8
+     model at B 1, self-draft, 86 frames (passes, acceptance, the share of
+     codes equal to sequential greedy, its first differing frame; the draft
+     heads' K1 launches exact: one per pass and one for the prefill); and 3
+     AdamW steps of the full train step on the flagship (losses and params
+     finite). Seconds per step, targets per second (padding excluded) and
+     peak memory for LoRA and the full step; wall ms per output frame of
+     speculative decode and of sequential greedy.
 With ``--parts``, only the device kernels of one K3, K3s or K4 call at the
 main path's shapes, each with its device time under torch.profiler. With
 ``--pair-streams``, only two flagship requests alone and at once, on the
 default stream and on a stream each.
 Prints one line per kernel check, a ``{"kernels": [...]}`` line (``launches``
-from phase 5, or phase 6 for K4, and ``launches_by_path`` for phases 5, 6, 8
-and 10, the last as "server"), the card's name and power limit, and last
+from phase 5, or phase 6 for K4, and ``launches_by_path`` for phases 5, 6, 8,
+10 ("server") and 11 ("lora_int8": the merged model's generate,
+"speculative")), the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -95,6 +117,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -1808,7 +1831,7 @@ PHASE10_RESULT = "phase10 result:"
 
 def _phase_server_main(single_rtf: float) -> int:
     """``--phase10 <phase 5 RTF>``: phase 10 in a process of its own (started
-    by ``_phase_server_process``), with the hybrid rebuilt as phase 8 made it
+    by ``_child_phase``), with the hybrid rebuilt as phase 8 made it
     (seed 0, int8). Prints the launch counts as its last line."""
     from zonos_tpu_torch.config import zonos_v01_hybrid_config
     from zonos_tpu_torch.models.zonos import Zonos
@@ -1824,29 +1847,333 @@ def _phase_server_main(single_rtf: float) -> int:
     return 0
 
 
-def _phase_server_process(single_rtf: float) -> dict:
-    """Phase 10 in a child process: its timings are not raised by the
-    profiler of phase 9, and its server threads and CUDA work share nothing
-    with this process's. The child's output is passed on line by line; it
-    must exit 0. Returns its launch counts."""
+def _child_phase(phase: int, args: list, marker: str) -> dict:
+    """A phase in a child process (phases 10 and 11): its timings are not
+    raised by the profiler of phase 9, and its threads and CUDA work share
+    nothing with this process's. The child's output is passed on line by
+    line; it must exit 0. Returns the launch counts it prints after
+    ``marker``."""
     t = time.perf_counter()
-    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--phase10", repr(single_rtf)],
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), f"--phase{phase}", *args],
                             cwd=os.path.dirname(os.path.abspath(__file__)), stdout=subprocess.PIPE, text=True)
     counts = None
     try:
         for line in proc.stdout:
             print(line, end="", flush=True)
-            if line.startswith(PHASE10_RESULT):
-                counts = json.loads(line[len(PHASE10_RESULT):])
+            if line.startswith(marker):
+                counts = json.loads(line[len(marker):])
         rc = proc.wait(timeout=900)
     finally:
         if proc.poll() is None:
             proc.kill()
             proc.wait()
-    print(f"phase10 process: exit {rc}, {time.perf_counter() - t:.1f} s", flush=True)
+    print(f"phase{phase} process: exit {rc}, {time.perf_counter() - t:.1f} s", flush=True)
     if rc != 0 or counts is None:
-        _fail(f"phase 10: the server phase exited {rc}")
+        _fail(f"phase {phase}: the child process exited {rc}")
     return counts
+
+
+# ---------------------------------------------------------------------------
+# Phase 11: training, LoRA fine-tuning and speculative decode
+# ---------------------------------------------------------------------------
+
+TRAIN_TEXT = "Well met, traveler."
+SPEC_FRAMES = 86  # 1 s of audio
+
+
+def _kernel_wrappers():
+    from zonos_tpu_torch.ops import cuda_attention as A
+    from zonos_tpu_torch.ops import cuda_matmul as M
+
+    return (M.int8_matmul, A.attn_core_int8, M.fused_mlp_int8, M.fused_mlp_int8_split, M.int4_matmul)
+
+
+def _cos(a: torch.Tensor, b: torch.Tensor) -> float:
+    a, b = a.double().cpu().ravel(), b.double().cpu().ravel()
+    return float(a @ b / (a.norm() * b.norm()).clamp(min=1e-300))
+
+
+def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
+    """‖a − b‖ / ‖b‖ (0 when both are zero)."""
+    d, n = float((a.double() - b.double()).norm()), float(b.double().norm())
+    return d / n if n else d
+
+
+def _train_check_2_layers(cfg):
+    """Loss and gradients of ``loss_fn`` at 2 layers of full width on the card
+    against the same weights on the CPU (f32, TF32 off): the loss within 1e-4
+    relative and each leaf's gradient at cosine >= 0.9999; on the card
+    ``accum_steps=2`` and ``remat=True`` give the plain step's loss and
+    gradients within 1e-5 (norm of the difference over the norm)."""
+    from zonos_tpu_torch.models.zonos import Zonos
+    from zonos_tpu_torch.training import train as T
+    from zonos_tpu_torch.training.data import build_batch, synthetic_dataset
+
+    cpu = Zonos.from_config(cfg, seed=1, dtype=torch.float32, device="cpu")
+    cond, delayed, mask = build_batch(cpu, synthetic_dataset(4, min_frames=24, max_frames=48, seed=1), frames=48)
+    out = {"cond_tokens": int(cond.shape[1]), "targets": int(mask.sum()) * cfg.codebook_dimension}
+    results = {}
+    for dev in ("cpu", "cuda"):
+        params = _tree_to({k: cpu.params[k] for k in ("embeddings", "heads", "backbone")}, dev)
+        leaves = T.trainable_leaves(params)
+        for accum, remat in ((1, False), (2, False), (1, True)) if dev == "cuda" else ((1, False),):
+            loss, grads = T.value_and_grad(lambda c, d, m: T.loss_terms(params, cfg, c, d, m, remat=remat), leaves,
+                                           accum, cond, delayed, mask)
+            results[dev, accum, remat] = (float(loss), grads)
+    names = [p for p, _ in T.named_leaves(cpu.params) if p.split("/")[0] in ("embeddings", "heads", "backbone")]
+    l_cpu, g_cpu = results["cpu", 1, False]
+    l_gpu, g_gpu = results["cuda", 1, False]
+    out["loss_cpu"], out["loss_card"] = l_cpu, l_gpu
+    out["loss_rel"] = abs(l_gpu - l_cpu) / abs(l_cpu)
+    out["grad_cos_min"] = min(_cos(a, b) for a, b in zip(g_gpu, g_cpu))
+    out["grad_cos"] = {n: _cos(a, b) for n, a, b in zip(names, g_gpu, g_cpu)}
+    for tag, key in (("accum2", ("cuda", 2, False)), ("remat", ("cuda", 1, True))):
+        loss, grads = results[key]
+        out[f"{tag}_loss_rel"] = abs(loss - l_gpu) / abs(l_gpu)
+        out[f"{tag}_grad_rel_max"] = max(_rel(a, b) for a, b in zip(grads, g_gpu))
+    print("phase11 2-layer check:", json.dumps(out), flush=True)
+    if out["loss_rel"] > 1e-4 or out["grad_cos_min"] < 0.9999:
+        _fail(f"phase 11: 2-layer loss card/CPU {out['loss_rel']:.3g} relative, gradient cosine "
+              f"{out['grad_cos_min']:.6f} (gates 1e-4, 0.9999)")
+    for tag in ("accum2", "remat"):
+        if out[f"{tag}_loss_rel"] > 1e-5 or out[f"{tag}_grad_rel_max"] > 1e-5:
+            _fail(f"phase 11: {tag} differs from the plain step: loss {out[f'{tag}_loss_rel']:.3g}, "
+                  f"gradients {out[f'{tag}_grad_rel_max']:.3g} (gate 1e-5)")
+    return out
+
+
+def _spec_vs_greedy(params, cfg, cond, dtype, kv_int8, frames=SPEC_FRAMES):
+    """Greedy ``generate_speculative`` (self-draft) beside greedy ``generate`` at
+    B 1: their codes, passes, acceptance and wall ms per frame; the
+    speculative run's launch counts."""
+    from zonos_tpu_torch.ops.sampling import SamplingParams
+    from zonos_tpu_torch.runtime.generate import generate
+    from zonos_tpu_torch.runtime.speculative import generate_speculative
+
+    greedy = SamplingParams(temperature=0.0, repetition_penalty=1.0)
+    kw = dict(max_new_tokens=frames, cfg_scale=2.0, sampling_params=greedy, seed=5, dtype=dtype, forbid_eos=True,
+              kv_int8=kv_int8, device="cuda")
+    with torch.no_grad():
+        generate_speculative(params, cfg, cond, **{**kw, "max_new_tokens": 16})  # warm-up
+        t = time.perf_counter()
+        seq = generate(params, cfg, cond, **kw)
+        seq_s = time.perf_counter() - t
+        wrappers = _kernel_wrappers()
+        for w in wrappers:
+            w.launches = 0
+        t = time.perf_counter()
+        spec, stats = generate_speculative(params, cfg, cond, return_stats=True, **kw)
+        spec_s = time.perf_counter() - t
+        counts = {w.__name__: w.launches for w in wrappers}
+    n = min(seq.shape[-1], spec.shape[-1])
+    same = seq[..., :n] == spec[..., :n]
+    differ = np.nonzero(~same.all(axis=(0, 1)))[0]
+    return {
+        "code_frames": int(spec.shape[-1]), **stats, "equal_share": float(same.mean()),
+        "first_differing_frame": int(differ[0]) if differ.size else None,
+        # both wall times over the output frames (the decode steps include n_q - 2 drain steps)
+        "spec_s": spec_s, "greedy_s": seq_s,
+        "spec_ms_per_frame": spec_s * 1e3 / spec.shape[-1], "greedy_ms_per_frame": seq_s * 1e3 / seq.shape[-1],
+        "launches": counts,
+    }, seq, spec
+
+
+def _unmerged_logits(params, cfg, lora, scale, cond, codes):
+    """``train.forward_logits`` with each adapter applied beside its frozen
+    weight, x·W + scale·(x·A)·B, never merged: the reference ``merge_lora``
+    is held against. Every target of every layer must be met once."""
+    from zonos_tpu_torch.models import transformer as TR
+    from zonos_tpu_torch.training import train as T
+
+    factors = {}  # a layer's slice of a stacked weight is a view: its address names it
+    for path, ad in lora.items():
+        w = params["backbone"]
+        for key in path.split("/"):
+            w = w[key]
+        for li in range(w.shape[0]):
+            factors[w[li].data_ptr()] = (ad["a"][li], ad["b"][li])
+    plain, met = TR.qeinsum, []
+
+    def qeinsum(eq, x, w):
+        y = plain(eq, x, w)
+        ab = factors.get(w.data_ptr()) if isinstance(w, torch.Tensor) else None
+        if ab is None:
+            return y
+        met.append(w.data_ptr())
+        return y + scale * ((x @ ab[0]) @ ab[1])
+
+    TR.qeinsum = qeinsum
+    try:
+        logits = T.forward_logits(params, cfg, cond, codes)
+    finally:
+        TR.qeinsum = plain
+    if sorted(met) != sorted(factors):
+        _fail(f"phase 11: the unmerged forward met {len(met)} adapted products, expected {len(factors)}")
+    return logits
+
+
+def _phase_train(card: str) -> dict:
+    """Phase 11: the training path and speculative decode on the card. Returns
+    the launch counts of the merged int8 model's generate and of the full-width
+    speculative run."""
+    from zonos_tpu_torch.bridge import params_from_jax
+    from zonos_tpu_torch.conditioning.cond_dict import make_cond_dict
+    from zonos_tpu_torch.config import zonos_v01_transformer_config
+    from zonos_tpu_torch.models.zonos import Zonos
+    from zonos_tpu_torch.ops.sampling import SamplingParams
+    from zonos_tpu_torch.training import finetune_lora
+    from zonos_tpu_torch.training import train as T
+    from zonos_tpu_torch.training.data import build_batch, synthetic_dataset
+    from zonos_tpu_torch.training.lora import merge_lora
+    from zonos_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
+
+    full, frames = zonos_v01_transformer_config(), 256
+    cfg2 = dataclasses.replace(full, backbone=dataclasses.replace(full.backbone, n_layer=2))
+    _train_check_2_layers(cfg2)
+
+    # speculative at 2 layers, f32 float weights: greedy equals generate's codes
+    small = Zonos.from_config(cfg2, seed=2, dtype=torch.float32, device="cuda")
+    cond = np.random.default_rng(2).normal(size=(2, 40, full.backbone.d_model)).astype(np.float32) * 0.05
+    res2, seq2, spec2 = _spec_vs_greedy(small.params, cfg2, cond, torch.float32, kv_int8=False)
+    print("phase11 speculative 2-layer f32:", json.dumps(res2), flush=True)
+    if spec2.shape != seq2.shape or not np.array_equal(spec2, seq2):
+        _fail(f"phase 11: 2-layer greedy speculative codes differ from generate's: {res2}")
+    del small
+
+    # LoRA fine-tune at full depth through the entry point's run()
+    tmp = tempfile.mkdtemp(prefix="zonos_train_")
+    try:
+        args = finetune_lora.parse_args(["--model", "transformer", "--synthetic", "16", "--rank", "8", "--batch", "4",
+                                         "--frames", str(frames), "--steps", "10", "--out", os.path.join(tmp, "a.npz")])
+        t = time.perf_counter()
+        model = finetune_lora.load_model(args)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t
+        base = {p: v.cpu() for p, v in T.named_leaves(model.params)}  # a host copy: the peak stays the step's
+        # samples of 192-256 frames, as the full step below draws: most positions are targets
+        examples = synthetic_dataset(16, n_q=full.codebook_dimension, min_frames=frames * 3 // 4, max_frames=frames,
+                                     seed=args.seed)
+        torch.cuda.reset_peak_memory_stats()
+        out = finetune_lora.run(args, model=model, examples=examples)
+        lora_peak = torch.cuda.max_memory_allocated() / 1e9
+        losses, state = out["losses"], out["state"]
+        changed = [p for p, v in T.named_leaves(model.params) if not torch.equal(v.cpu(), base[p])]
+        b_zero = [t_ for t_, a in state.lora.items() if not a["b"].any()]
+        steady = out["step_s"][1:]  # the first step allocates
+        lora = {"init_s": init_s, "losses": losses, "s_per_step": float(np.median(steady)),
+                "targets_per_s": sum(out["targets"][1:]) / sum(steady), "targets": out["targets"],
+                "positions_per_step": out["positions_per_step"], "peak_mem_gb": lora_peak,
+                "first_step_s": out["step_s"][0]}
+        if not all(np.isfinite(losses)) or changed or b_zero:
+            _fail(f"phase 11: LoRA losses {losses}, base leaves changed {changed}, B still zero in {b_zero}")
+
+        # the merged weights through the native checkpoint (what --merge writes) against the
+        # adapter applied beside the frozen weights, never merged
+        with torch.no_grad():
+            merged = dict(model.params)
+            merged["backbone"] = merge_lora(model.params["backbone"], state.lora, scale=args.scale)
+            t = time.perf_counter()
+            save_checkpoint(os.path.join(tmp, "merged"), merged, config=full)
+            lora["merge_write_s"] = time.perf_counter() - t
+            del merged
+            t = time.perf_counter()
+            merged = load_checkpoint(os.path.join(tmp, "merged"), device="cuda")
+            lora["merge_read_s"] = time.perf_counter() - t
+            c, dl, _m = build_batch(model, synthetic_dataset(2, seed=9, min_frames=frames // 4,
+                                                             max_frames=frames // 2), frames=frames // 2)
+            got = T.forward_logits(merged, full, c, dl[..., :-1])
+            params = {k: model.params[k] for k in ("embeddings", "heads", "backbone")}
+            ref = _unmerged_logits(params, full, state.lora, args.scale, c, dl[..., :-1])
+            base_logits = T.forward_logits(params, full, c, dl[..., :-1])
+        lora["merged_logits_rel"] = _rel(got, ref)
+        lora["merged_effect_rel"] = _rel(got - base_logits, ref - base_logits)
+        lora["adapter_effect_rel"] = _rel(ref, base_logits)
+        del got, ref, base_logits
+        print("phase11 lora:", json.dumps(lora), f"card: {card}", flush=True)
+        if lora["merged_logits_rel"] > 1e-4:
+            _fail(f"phase 11: merged checkpoint logits differ from the unmerged adapter forward: "
+                  f"{lora['merged_logits_rel']}")
+
+        # the merged model as a user deploys it: bf16, int8, generate through K1-K3
+        deploy = Zonos(full, params_from_jax(_to_numpy(merged), device="cuda", dtype=torch.bfloat16),
+                       dtype=torch.bfloat16, device="cuda").quantize()
+        del merged
+        torch.cuda.empty_cache()
+        tcond = deploy.prepare_conditioning(make_cond_dict(text=TRAIN_TEXT, speaker=np.zeros((1, 1, 128), np.float32)))
+        wrappers = _kernel_wrappers()
+        with torch.no_grad():
+            for w_ in wrappers:
+                w_.launches = 0
+            stats = {}
+            codes = deploy.generate(tcond, max_new_tokens=SPEC_FRAMES, cfg_scale=2.0, seed=1, forbid_eos=True,
+                                    sampling_params=SamplingParams(min_p=0.1), stats=stats)
+            lora_counts = {w_.__name__: w_.launches for w_ in wrappers}
+        steps, L = stats["decode_steps"], full.backbone.n_layer
+        expected = {"int8_matmul": steps * (2 * L + 1) + 1, "attn_core_int8": steps * L,
+                    "fused_mlp_int8": steps * L, "fused_mlp_int8_split": 0, "int4_matmul": 0}
+        print("phase11 merged int8 generate:", json.dumps({"frames": int(codes.shape[-1]), "decode_steps": steps,
+              "decode_ms_per_frame": stats["decode_s"] * 1e3 / steps, "launches": lora_counts,
+              "expected": expected}), flush=True)
+        if lora_counts != expected or codes.shape != (1, 9, SPEC_FRAMES) or codes.min() < 0 or codes.max() > 1023:
+            _fail(f"phase 11: merged int8 generate: launches {lora_counts} (expected {expected}), codes "
+                  f"{codes.shape}")
+
+        # speculative at full width, int8, B 1, self-draft: printed, not gated on equality
+        spec, _seq, _spec = _spec_vs_greedy(deploy.params, full, tcond, torch.bfloat16, kv_int8=True)
+        spec_expected = {"int8_matmul": spec["passes"] + 1, "attn_core_int8": 0, "fused_mlp_int8": 0,
+                         "fused_mlp_int8_split": 0, "int4_matmul": 0}
+        print("phase11 speculative int8:", json.dumps(spec), "expected:", json.dumps(spec_expected),
+              f"card: {card}", flush=True)
+        if spec["launches"] != spec_expected or spec["code_frames"] < SPEC_FRAMES:
+            _fail(f"phase 11: speculative launches {spec['launches']} (expected {spec_expected}), "
+                  f"{spec['code_frames']} frames")
+        del deploy
+        torch.cuda.empty_cache()
+
+        # the full train step at full depth: 3 AdamW steps on the flagship
+        params = {k: model.params[k] for k in ("embeddings", "heads", "backbone")}
+        opt = T.make_optimizer(lr=1e-4, warmup=1)
+        torch.cuda.reset_peak_memory_stats()
+        tstate = T.init_train_state(params, opt)
+        step = T.build_train_step(full, opt)
+        batch = build_batch(model, synthetic_dataset(4, min_frames=frames * 3 // 4, max_frames=frames, seed=3),
+                            frames=frames)
+        step_s, losses = [], []
+        for _ in range(3):
+            t = time.perf_counter()
+            tstate, loss = step(tstate, *batch)
+            losses.append(float(loss))
+            step_s.append(time.perf_counter() - t)
+        finite = all(bool(torch.isfinite(v).all()) for _, v in T.named_leaves(params))
+        n_targets = T.count_targets(batch[1], batch[2], full.head_vocab_size)
+        full_res = {"losses": losses, "step_s": step_s, "s_per_step": float(np.median(step_s[1:])),
+                    "targets": n_targets, "positions_per_step": 4 * (frames + full.codebook_dimension - 1),
+                    "targets_per_s": n_targets / float(np.median(step_s[1:])),
+                    "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "params_finite": finite}
+        print("phase11 full train step:", json.dumps(full_res), f"card: {card}", flush=True)
+        if not (all(np.isfinite(losses)) and finite):
+            _fail(f"phase 11: full train step losses {losses}, params finite {finite}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"lora_int8": lora_counts, "speculative": spec["launches"]}
+
+
+PHASE11_RESULT = "phase11 result:"
+
+
+def _phase_train_main() -> int:
+    """``--phase11``: phase 11 in a process of its own (started by
+    ``_child_phase``). Prints the launch counts as its last line."""
+    from zonos_tpu_torch.ops import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.build_all()  # built by the parent: finds every library
+    t = time.perf_counter()
+    counts = _phase_train(_card_line())
+    print(f"phase11 total: {time.perf_counter() - t:.1f} s", flush=True)
+    print(PHASE11_RESULT, json.dumps(counts), flush=True)
+    return 0
 
 
 # ---------------------------------------------------------------------------
@@ -1997,9 +2324,11 @@ def main() -> int:
     _phase_profile("hybrid int8", model_h, cond_h, result_h["decode_ms_per_frame"])
     del model, model4, model_h
     torch.cuda.empty_cache()
-    server_counts = _phase_server_process(result["rtf"])
+    server_counts = _child_phase(10, [repr(result["rtf"])], PHASE10_RESULT)
+    train_counts = _child_phase(11, [], PHASE11_RESULT)
 
-    by_path = {"int8": counts, "int4": facade_counts, "hybrid_int8": hybrid_counts, "server": server_counts}
+    by_path = {"int8": counts, "int4": facade_counts, "hybrid_int8": hybrid_counts, "server": server_counts,
+               **train_counts}
 
     def entry(name, source, replaces, rows, launches):
         main_row = rows[0]
@@ -2041,4 +2370,6 @@ if __name__ == "__main__":
         sys.exit(_pair_streams())
     if sys.argv[1:2] == ["--phase10"] and torch.cuda.is_available():
         sys.exit(_phase_server_main(float(sys.argv[2])))
+    if sys.argv[1:] == ["--phase11"] and torch.cuda.is_available():
+        sys.exit(_phase_train_main())
     sys.exit(main())

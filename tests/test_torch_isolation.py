@@ -61,6 +61,31 @@ def test_serving_modules_import_without_jax(module):
     assert out.stdout.startswith("ok")
 
 
+TRAINING_MODULES = ["training.train", "training.lora", "training.data", "training.finetune_lora",
+                    "runtime.speculative", "utils.profiling", "testing.asr_check"]
+
+
+@pytest.mark.parametrize("module", TRAINING_MODULES)
+def test_training_modules_import_without_jax_or_optax(module):
+    """The training path, speculative decode, profiling and the ASR check import
+    with jax, flax, optax and the JAX package blocked, and load neither
+    transformers nor matplotlib until they are used."""
+    code = textwrap.dedent(f"""
+        import sys
+        for name in ("jax", "flax", "optax", "zonos_tpu"):
+            sys.modules[name] = None
+        import importlib
+        mod = importlib.import_module("zonos_tpu_torch.{module}")
+        loaded = [n for n in sys.modules if sys.modules[n] is not None]
+        assert not any(n.split(".")[0] in ("jax", "flax", "optax", "zonos_tpu", "transformers", "matplotlib")
+                       for n in loaded), [n for n in loaded if n.startswith(("jax", "optax", "transformers"))]
+        print("ok", mod.__name__)
+    """)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")
+
+
 def test_webui_is_the_ports_own_copy():
     from zonos_tpu_torch.serving import server
 
@@ -89,7 +114,8 @@ def test_quantize_failure_is_raised_not_served_around(monkeypatch, tmp_path):
 
 @pytest.mark.parametrize("entry", ["zonos", "dac", "generate", "facade", "generate_audio", "stream", "speaker",
                                    "default_speaker", "speaker_audio", "dac_encode", "tts", "hybrid", "from_local",
-                                   "from_pretrained", "model_manager", "server"])
+                                   "from_pretrained", "model_manager", "server", "finetune_lora", "speculative",
+                                   "asr_check"])
 def test_entry_points_default_to_cuda(monkeypatch, tmp_path, entry):
     """Every entry point raises without a card unless the caller asks for the
     CPU. The facade's methods (prepare_conditioning, generate, generate_audio,
@@ -131,11 +157,34 @@ def test_entry_points_default_to_cuda(monkeypatch, tmp_path, entry):
             monkeypatch.setattr(model_manager, "_CURRENT_MODEL", None)
             model_manager.load_model_if_needed(config={})
         elif entry == "server":
-            from zonos_tpu_torch.serving import server
+            import logging
 
+            from zonos_tpu_torch.conditioning import text
+            from zonos_tpu_torch.serving import app_config, server
+
+            # main() sets the server's phoneme bucket and logging before it
+            # raises: put them back for the tests that follow in this process
+            logger = logging.getLogger("zonos_tpu_torch")
+            monkeypatch.setattr(text, "PAD_BUCKET", text.PAD_BUCKET)
+            monkeypatch.setattr(server, "_APP_CONFIG", server._APP_CONFIG)
+            monkeypatch.setattr(app_config, "_LOGGING_DONE", app_config._LOGGING_DONE)
+            monkeypatch.setattr(logger, "handlers", list(logger.handlers))
+            monkeypatch.setattr(logger, "level", logger.level)
             monkeypatch.delenv("ZONOS_PLATFORM", raising=False)
             monkeypatch.chdir(tmp_path)
             server.main(["--no-preload", "--port", "0", "--server", "127.0.0.1"])
+        elif entry == "finetune_lora":
+            from zonos_tpu_torch.training import finetune_lora
+
+            finetune_lora.main(["--synthetic", "2", "--steps", "1", "--out", str(tmp_path / "a.npz")])
+        elif entry == "speculative":
+            from zonos_tpu_torch.runtime.speculative import generate_speculative
+
+            generate_speculative({}, tiny_transformer_config(), cond)
+        elif entry == "asr_check":
+            from zonos_tpu_torch.testing import asr_check
+
+            asr_check.transcribe([0.0] * 16000, 16000)
         else:
             next(streaming.generate_stream({}, tiny_transformer_config(), cond))
 

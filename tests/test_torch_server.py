@@ -37,6 +37,45 @@ def _request(port, path, body=None, method=None):
         return e.code, dict(e.headers), e.read()
 
 
+def save_server_globals():
+    """The process-global state that ``server.main()`` and the routes write:
+    the phoneme bucket (``main`` sets the server's, 32), the app config and
+    the listening server, the port's logger that ``setup_logging`` configures
+    once, ``HF_HOME`` (set from the app config), and the lexicon entries of
+    both packages (POST /lexicon). Returns a function that puts all of it
+    back, so that no later test in the process sees a server's settings."""
+    import logging
+
+    from zonos_tpu.conditioning import lexicon as jlex
+    from zonos_tpu_torch.conditioning import lexicon as tlex
+    from zonos_tpu_torch.conditioning import text as ttext
+    from zonos_tpu_torch.serving import app_config as tcfg
+    from zonos_tpu_torch.serving import server as tsrv
+
+    logger = logging.getLogger("zonos_tpu_torch")
+    saved = (ttext.PAD_BUCKET, tsrv._APP_CONFIG, tsrv._SERVER, tcfg._LOGGING_DONE, list(logger.handlers),
+             logger.level, os.environ.get("HF_HOME"), {lex: lex.entries() for lex in (jlex, tlex)})
+
+    def restore():
+        (ttext.PAD_BUCKET, tsrv._APP_CONFIG, tsrv._SERVER, tcfg._LOGGING_DONE, handlers, level, hf_home,
+         lexicons) = saved
+        for h in logger.handlers[:]:
+            if h not in handlers:
+                logger.removeHandler(h)
+        logger.setLevel(level)
+        if hf_home is None:
+            os.environ.pop("HF_HOME", None)
+        else:
+            os.environ["HF_HOME"] = hf_home
+        for lex, entries in lexicons.items():
+            lex.remove(None)
+            for word, by_lang in entries.items():
+                for lang, ipa in by_lang.items():
+                    lex.set_entries({word: ipa}, lang or None)
+
+    return restore
+
+
 @pytest.fixture(scope="module")
 def servers(tmp_path_factory):
     from zonos_tpu.serving import model_manager as jmm
@@ -45,6 +84,7 @@ def servers(tmp_path_factory):
     from zonos_tpu_torch.serving import server as tsrv
 
     saved_env = {k: os.environ.get(k) for k in ("ZONOS_PLATFORM", "ZONOS_TINY_MODEL")}
+    restore_globals = save_server_globals()
     saved_state = (jmm._CURRENT_MODEL, jmm._CURRENT_NAME, tmm._CURRENT_MODEL, tmm._CURRENT_NAME)
     cwd = os.getcwd()
     os.chdir(tmp_path_factory.mktemp("torch_server"))
@@ -65,7 +105,7 @@ def servers(tmp_path_factory):
     tsrv._SERVER.shutdown()
     jserver.shutdown()
     thread.join(timeout=30)
-    tsrv._SERVER = None
+    restore_globals()
     os.chdir(cwd)
     for k, v in saved_env.items():
         if v is None:

@@ -159,3 +159,9 @@ def hybrid_cache_from_jax(cache, device="cpu"):
     n = len(cache.kv_k)
     return HybridCache(kv_k=conv(cache.kv_k), kv_v=conv(cache.kv_v), conv=conv(cache.conv), ssm=conv(cache.ssm),
                        kv_ks=conv(cache.kv_ks or [None] * n), kv_vs=conv(cache.kv_vs or [None] * n))
+
+
+def lora_from_jax(tree: dict, device="cpu", dtype=torch.float32) -> dict:
+    """A JAX LoRA adapter ``{"<target>": {"a": [L, in, r], "b": [L, r, out]}}``
+    (numpy values) → the port's, the same layout, ``dtype`` factors."""
+    return {target: {k: _tensor(v, device, dtype, k) for k, v in adapter.items()} for target, adapter in tree.items()}

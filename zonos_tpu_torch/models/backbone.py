@@ -24,8 +24,9 @@ def create_cache(cfg: BackboneConfig, batch_size: int, max_seqlen: int, dtype=to
 
 
 def backbone_forward(params, cfg: BackboneConfig, x, cache, write_start, pad_amount, attend_len,
-                     pos_offset=None, gap_len=None, gap_start=0):
-    """(x [B,S,D], cache) → (normed hidden [B,S,D], cache). S > 1 ⇒ prefill."""
+                     pos_offset=None, gap_len=None, gap_start=0, remat: bool = False):
+    """(x [B,S,D], cache) → (normed hidden [B,S,D], cache). S > 1 ⇒ prefill.
+    ``remat`` (cache None, training) recomputes each layer in the backward pass."""
     forward = hybrid_forward if cfg.is_hybrid else transformer_forward
     return forward(params, cfg, x, cache, write_start, pad_amount, attend_len,
-                   pos_offset=pos_offset, gap_len=gap_len, gap_start=gap_start)
+                   pos_offset=pos_offset, gap_len=gap_len, gap_start=gap_start, remat=remat)

@@ -22,6 +22,7 @@ import dataclasses
 import functools
 
 import torch
+import torch.utils.checkpoint
 
 from zonos_tpu_torch.config import BackboneConfig
 from zonos_tpu_torch.models.transformer import _decode_mlp, _kv_quantize, _layer
@@ -196,14 +197,16 @@ def hybrid_forward(
     pos_offset: torch.Tensor | None = None,  # [B] logical-position offsets (decode)
     gap_len: torch.Tensor | None = None,  # [B] dead cache span after the prefill
     gap_start: int = 0,
+    remat: bool = False,
 ) -> tuple[torch.Tensor, HybridCache | None]:
     """All hybrid layers over x; S > 1 is the prefill, S == 1 a decode step.
 
     The cache (KV, conv and SSD states) is updated in place. With cache None
     the prefill runs cache-free: attention over x itself, Mamba states from
-    zeros and dropped. Left padding (``pad_amount``) is masked out of the
-    attention and kept out of the Mamba states. Returns (final-normed hidden
-    [B, S, D], the cache).
+    zeros and dropped (the training forward; ``remat`` then recomputes each
+    layer in the backward pass, ``torch.utils.checkpoint``). Left padding
+    (``pad_amount``) is masked out of the attention and kept out of the
+    Mamba states. Returns (final-normed hidden [B, S, D], the cache).
     """
     b, s, _ = x.shape
     prefill = s > 1
@@ -221,21 +224,33 @@ def hybrid_forward(
     else:
         mask = decode_mask(attend_len, pad_amount, write_start, gap_start=gap_start, gap_len=gap_len)
 
+    def attn_layer(gp, gi, x):
+        out = _attn_mixer(gp["mixer"], cfg, _norm(x, gp["norm"], cfg), cache, gi, write_start, mask,
+                          attend_len if cache is not None else s, None if prefill else pos_offset, decode_args)
+        x = x + out
+        if gp.get("mlp") is not None:
+            x = x + _mlp(gp["mlp"], _norm(x, gp["norm2"], cfg))
+        return x
+
+    def mamba_layer_no_cache(layer_p, x):
+        return _mamba_layer(layer_p, cfg, x, None, None, seq_mask, prefill)[0]
+
+    ckpt = remat and cache is None
     for gi, (kind, run) in enumerate(layer_groups(cfg)):
         gp = params["groups"][gi]
         if kind == "attn":
-            out = _attn_mixer(gp["mixer"], cfg, _norm(x, gp["norm"], cfg), cache, gi, write_start, mask,
-                              attend_len if cache is not None else s, None if prefill else pos_offset, decode_args)
-            x = x + out
-            if gp.get("mlp") is not None:
-                x = x + _mlp(gp["mlp"], _norm(x, gp["norm2"], cfg))
+            x = (torch.utils.checkpoint.checkpoint(attn_layer, gp, gi, x, use_reentrant=False) if ckpt
+                 else attn_layer(gp, gi, x))
             continue
         for i in range(run):
-            states = (None, None) if cache is None else (cache.conv[gi][i], cache.ssm[gi][i])
-            x, conv_state, ssm_state = _mamba_layer(_layer(gp, i), cfg, x, *states, seq_mask, prefill)
-            if cache is not None:
-                cache.conv[gi][i].copy_(conv_state)
-                cache.ssm[gi][i].copy_(ssm_state)
+            if cache is None:
+                x = (torch.utils.checkpoint.checkpoint(mamba_layer_no_cache, _layer(gp, i), x, use_reentrant=False)
+                     if ckpt else mamba_layer_no_cache(_layer(gp, i), x))
+                continue
+            x, conv_state, ssm_state = _mamba_layer(_layer(gp, i), cfg, x, cache.conv[gi][i], cache.ssm[gi][i],
+                                                    seq_mask, prefill)
+            cache.conv[gi][i].copy_(conv_state)
+            cache.ssm[gi][i].copy_(ssm_state)
     x = layer_norm(x, params["norm_f"]["scale"], params["norm_f"]["bias"], cfg.norm_epsilon)
     return x, cache
 

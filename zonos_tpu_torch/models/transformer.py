@@ -19,6 +19,7 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.utils.checkpoint
 
 from zonos_tpu_torch.config import BackboneConfig
 from zonos_tpu_torch.ops.attention import (
@@ -196,12 +197,16 @@ def transformer_forward(
     pos_offset: torch.Tensor | None = None,  # [B] logical-position offsets
     gap_len: torch.Tensor | None = None,  # [B] dead cache span after the prefill
     gap_start: int = 0,  # where the dead span begins (prefill_len)
+    remat: bool = False,  # cache None: recompute each layer in the backward pass
 ) -> tuple[torch.Tensor, KVCache | None]:
     """Run all layers over x, updating the cache in place. Prefill and decode.
 
     Prefill: write_start 0, attend_len S. Decode: S = 1, write_start t. A short
     span S > 1 with attend_len != S is the multi-token verify: row r sees
-    [pad, write_start + r]. With cache None attention runs over x itself.
+    [pad, write_start + r]. With cache None attention runs over x itself (the
+    training forward); ``remat`` then wraps each layer in
+    ``torch.utils.checkpoint`` (JAX's ``ZONOS_REMAT=1``), so its activations
+    are recomputed in the backward pass instead of stored.
     Returns (final-normed hidden states [B, S, D], the same cache).
     """
     b, s, _ = x.shape
@@ -225,7 +230,11 @@ def transformer_forward(
         mask = decode_mask(attend_len, pad_amount, write_start, gap_start=gap_start, gap_len=gap_len)
 
     for li in range(cfg.n_layer):
-        x = _attn_block(_layer(params["layers"], li), cfg, x, freqs, cache, li, write_start, mask,
-                        attend_len if cache is not None else s, decode_args)
+        args = (_layer(params["layers"], li), cfg, x, freqs, cache, li, write_start, mask,
+                attend_len if cache is not None else s, decode_args)
+        if remat and cache is None:
+            x = torch.utils.checkpoint.checkpoint(_attn_block, *args, use_reentrant=False)
+        else:
+            x = _attn_block(*args)
     xo = layer_norm(x, params["norm_f"]["scale"], params["norm_f"]["bias"], cfg.norm_epsilon)
     return xo, cache

@@ -115,6 +115,27 @@ def _eos_trim_lengths(out_raw: torch.Tensor, offsets: torch.Tensor, cfg) -> torc
     return torch.where(first < s, first, valid)
 
 
+def _advance(c: DecodeCarry, next_token: torch.Tensor, cfg, cb: torch.Tensor) -> None:
+    """One sampled frame through the EOS staircase into the code buffer, in
+    place: an EOS in codebook 0 starts a drain of n_q steps, during which
+    codebook k holds MASK before the staircase, EOS on it and its token after;
+    a sample's stop offset is set where its drain ends. ``cb`` is
+    ``arange(n_q)[None, :]`` on the codes' device."""
+    n_q = cfg.codebook_dimension
+    eos_in_cb0 = next_token[:, 0] == cfg.eos_token_id
+    remaining = torch.where(eos_in_cb0, torch.clamp(c.remaining_steps, max=n_q), c.remaining_steps)
+    c.stopping = c.stopping | eos_in_cb0
+    eos_idx = torch.clamp(n_q - remaining, max=n_q - 1)[:, None]
+    stop_b = c.stopping[:, None]
+    tok = torch.where(stop_b & (cb < eos_idx), cfg.masked_token_id,
+                      torch.where(stop_b & (cb == eos_idx), cfg.eos_token_id, next_token)).to(torch.int32)
+    _write_frame(c.delayed_codes, c.offset, tok)
+    just_drained = (remaining - 1 == 0) & (c.stop_offset < 0)
+    c.stop_offset = torch.where(just_drained, c.offset, c.stop_offset).to(torch.int32)
+    c.remaining_steps = remaining - 1
+    c.offset += 1
+
+
 def build_segment_fn(statics: GenerateStatics):
     """Decode until min(segment_end, max_steps) steps or EOS-drain exhaustion."""
     cfg = statics.cfg
@@ -155,20 +176,7 @@ def build_segment_fn(statics: GenerateStatics):
                     generated_tokens=ctx, generated_valid_len=valid,
                 )
 
-            eos_in_cb0 = next_token[:, 0] == cfg.eos_token_id
-            remaining = torch.where(eos_in_cb0, torch.clamp(c.remaining_steps, max=n_q), c.remaining_steps)
-            c.stopping = c.stopping | eos_in_cb0
-            eos_idx = torch.clamp(n_q - remaining, max=n_q - 1)[:, None]
-            stop_b = c.stopping[:, None]
-            next_token = torch.where(
-                stop_b & (cb < eos_idx), cfg.masked_token_id,
-                torch.where(stop_b & (cb == eos_idx), cfg.eos_token_id, next_token),
-            ).to(torch.int32)
-            _write_frame(c.delayed_codes, c.offset, next_token)
-            just_drained = (remaining - 1 == 0) & (c.stop_offset < 0)
-            c.stop_offset = torch.where(just_drained, c.offset, c.stop_offset).to(torch.int32)
-            c.remaining_steps = remaining - 1
-            c.offset += 1
+            _advance(c, next_token, cfg, cb)
             c.steps_done += 1
 
         # Status [offset, steps_done, all_stopped, lengths[B], drained[B]] and
