@@ -32,7 +32,7 @@ Phases; any failure exits non-zero:
      compared; a 2-layer transformer written as a reference checkpoint and
      read back by from_local, params bit-equal; a short DAC decode compared;
   5. the main path: the flagship transformer (24 layers), int8 weights and KV,
-     860 frames (10 s) at cfg 2.0 and min-p 0.1, then the full-size DAC to
+     430 frames (5 s) at cfg 2.0 and min-p 0.1, then the full-size DAC to
      int16 PCM; a 128-frame warm-up run, then the timed run with every
      kernel's launch count set to 0 before it and checked after it;
   6. the facade path on int4 weights: English text and a speaker vector through
@@ -100,7 +100,23 @@ Phases; any failure exits non-zero:
      AdamW steps of the full train step on the flagship (losses and params
      finite). Seconds per step, targets per second (padding excluded) and
      peak memory for LoRA and the full step; wall ms per output frame of
-     speculative decode and of sequential greedy.
+     speculative decode and of sequential greedy;
+ 12. data and tensor parallelism on torch.distributed, in a process of its
+     own (``--phase12``, after phase 11), ranks spawned on the one card over
+     gloo (the backend and world printed on a line of their own): tp = 2 on
+     the flagship at full depth, int8 weights and KV, 86 frames at cfg 2.0
+     greedy then min-p 0.1, against the one-device int8 generate on the
+     same seeded weights run before the ranks start (the tp ranks' codes
+     identical in every frame, first-step logits correlation >= 0.999,
+     teacher-forced greedy agreement >= 90%, each rank's K1/K2/K3 launch
+     counts exact); the same on the hybrid at 2 layers (one Mamba, one
+     attention) over 32 frames; dp = 2 on the flagship, 4 rows at one int
+     seed, each rank's 2 rows bit-equal to a one-device generate of those
+     rows at their global seeds; the sharded train step, dp 2 x tp 2 on 4
+     ranks at 2 layers of full width, f32 with TF32 off, transformer and
+     hybrid (loss within 1e-4 relative of the one-device loss, each leaf's
+     gradient at cosine >= 0.9999, 3 steps at warmup 1 finite and falling);
+     ms per frame against one device, and seconds per step.
 With ``--parts``, only the device kernels of one K3, K3s or K4 call at the
 main path's shapes, each with its device time under torch.profiler. With
 ``--pair-streams``, only two flagship requests alone and at once, on the
@@ -108,7 +124,8 @@ default stream and on a stream each.
 Prints one line per kernel check, a ``{"kernels": [...]}`` line (``launches``
 from phase 5, or phase 6 for K4, and ``launches_by_path`` for phases 5, 6, 8,
 10 ("server") and 11 ("lora_int8": the merged model's generate,
-"speculative")), the card's name and power limit, and last
+"speculative") and 12 ("tp2", "tp2_hybrid", "dp2": one rank's counts)),
+the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -187,6 +204,12 @@ def _fail(msg: str) -> None:
 HYBRID_K1 = ((2048, 8512), (4096, 2048))
 HYBRID_K4 = ((2048, 8512), (4096, 2048), (2048, 8192))
 HYBRID_F = 4096
+# One rank's shards under tp = 2 (phase 12): the flagship's in_proj (1536 =
+# 8 q + 2 k + 2 v heads of 128) and out_proj (rows 1024), the Mamba in_proj
+# (8512 / 2); K3 at F 8192 / 2 (the flagship MLP: HYBRID_F's shape) and
+# 4096 / 2 (the Mamba layers' MLP); K2 over 2 KV heads and 8 query heads.
+TP2_K1 = ((2048, 1536), (1024, 2048), (2048, 4256))
+TP2_F = 2048
 
 
 def _k1_case(M, gen, flush, read_flush, b, k, n, pad_rows16, quantize_int8, tag=""):
@@ -234,6 +257,8 @@ def _k1_cases(gen, flush, read_flush):
     # the hybrid's Mamba in_proj (N 8512: 33 tiles of 256 and a 64-column tail) and out_proj
     for k, n in HYBRID_K1:
         rows.append(_k1_case(M, gen, flush, read_flush, 2, k, n, pad_rows16, quantize_int8, "hybrid "))
+    for k, n in TP2_K1:
+        rows.append(_k1_case(M, gen, flush, read_flush, 2, k, n, pad_rows16, quantize_int8, "tp2 "))
     # The scalar variant (a row stride that is not a multiple of 16 bytes, which
     # no main-path weight has): the heads unpadded, checked only.
     x = torch.randn((3, 2048), generator=gen, device="cuda").to(torch.bfloat16)
@@ -254,7 +279,7 @@ def _k2_cases(gen, flush, read_flush):
     from zonos_tpu_torch.models.transformer import _kv_quantize
     from zonos_tpu_torch.ops import cuda_attention as A
 
-    hkv, hq, dh = 4, 16, 128
+    dh = 128
     rows = []
     # the main path's cache (1152 slots, timed), a cache long enough that each
     # rank walks its share in two bulk-copy stages (checked only), and the
@@ -262,10 +287,12 @@ def _k2_cases(gen, flush, read_flush):
     # 256-slot prefill with its own length per row, read through the
     # 1024-slot view of an attend rung (timed)
     engine_gap = [int(v) for v in np.random.default_rng(7).integers(0, 700, 16)]
-    for case, b, s, view, wi, gap_start, gap in (
-            ("mid-cache", 2, 1152, None, 700, 0, None), ("gap", 2, 1152, None, 900, 128, [40, 0]),
-            ("long-cache", 2, 8192, None, 8000, 0, None),
-            ("engine B=16 S=3328 attend 1024", 16, 3328, 1024, 1000, 256, engine_gap)):
+    # (and a tp = 2 rank's 2 KV heads and 8 query heads over the main path's cache)
+    for case, b, s, view, wi, gap_start, gap, hkv, hq in (
+            ("mid-cache", 2, 1152, None, 700, 0, None, 4, 16), ("gap", 2, 1152, None, 900, 128, [40, 0], 4, 16),
+            ("long-cache", 2, 8192, None, 8000, 0, None, 4, 16),
+            ("engine B=16 S=3328 attend 1024", 16, 3328, 1024, 1000, 256, engine_gap, 4, 16),
+            ("tp2 Hkv 2 Hq 8", 2, 1152, None, 700, 0, None, 2, 8)):
         q = torch.randn((b, 1, hq, dh), generator=gen, device="cuda").to(torch.bfloat16)
         kq, ks = _kv_quantize(torch.randn((b, s, hkv, dh), generator=gen, device="cuda") * 2.0)
         vq, vs = _kv_quantize(torch.randn((b, s, hkv, dh), generator=gen, device="cuda"))
@@ -330,10 +357,11 @@ def _k3_cases(gen, flush, read_flush):
     from zonos_tpu_torch.ops.quant import quantize_int8
 
     rows = []
-    # the flagship MLP (K3 and K3s), the hybrid's Mamba-layer MLP (K3), and
-    # the flagship MLP at the continuous engine's 16 rows (K3)
+    # the flagship MLP (K3 and K3s), the hybrid's Mamba-layer MLP (K3; a tp = 2
+    # rank's flagship MLP too), the flagship MLP at the continuous engine's 16
+    # rows (K3), and a tp = 2 rank's Mamba-layer MLP
     for b, d, f, names in ((2, 2048, 8192, ("K3", "K3s")), (2, 2048, HYBRID_F, ("K3 hybrid",)),
-                           (16, 2048, 8192, ("K3 B16",))):
+                           (16, 2048, 8192, ("K3 B16",)), (2, 2048, TP2_F, ("K3 tp2",))):
         rows += _k3_shape(M, quantize_int8, gen, flush, read_flush, b, d, f, names)
     return rows
 
@@ -797,7 +825,7 @@ def _phase_main_path(card: str):
     if not M.int8_vector_path(heads):  # rows padded to 16 bytes: K1 reads the heads by TMA
         _fail(f"phase 5: the int8 heads {tuple(heads.shape)} (row stride {heads.stride(0)}) miss the TMA path")
     cond = np.random.default_rng(0).normal(size=(2, 80, cfg.backbone.d_model)).astype(np.float32) * 0.05
-    frames = 860
+    frames = 430  # 5 s of audio
 
     def run(seed, n=frames):
         stats = {}
@@ -1848,7 +1876,7 @@ def _phase_server_main(single_rtf: float) -> int:
 
 
 def _child_phase(phase: int, args: list, marker: str) -> dict:
-    """A phase in a child process (phases 10 and 11): its timings are not
+    """A phase in a child process (phases 10-12): its timings are not
     raised by the profiler of phase 9, and its threads and CUDA work share
     nothing with this process's. The child's output is passed on line by
     line; it must exit 0. Returns the launch counts it prints after
@@ -1994,8 +2022,8 @@ def _unmerged_logits(params, cfg, lora, scale, cond, codes):
             factors[w[li].data_ptr()] = (ad["a"][li], ad["b"][li])
     plain, met = TR.qeinsum, []
 
-    def qeinsum(eq, x, w):
-        y = plain(eq, x, w)
+    def qeinsum(eq, x, w, out_dtype=None):
+        y = plain(eq, x, w, out_dtype)
         ab = factors.get(w.data_ptr()) if isinstance(w, torch.Tensor) else None
         if ab is None:
             return y
@@ -2177,6 +2205,342 @@ def _phase_train_main() -> int:
 
 
 # ---------------------------------------------------------------------------
+# Phase 12: tensor and data parallelism on torch.distributed
+# ---------------------------------------------------------------------------
+
+PHASE12_RESULT = "phase12 result:"
+PAR_FRAMES, PAR_HYBRID_FRAMES = 86, 32
+WARM_FRAMES = 8  # a warm-up generate before each timed one
+
+
+def _par_configs(device="cuda", train: bool = False) -> dict:
+    """Phase 12's models at full width: the flagship at full depth (2 layers
+    for training), the hybrid with 2 layers (one Mamba, one attention), as
+    phase 4 cuts it. On the CPU (a rehearsal) the tiny configs."""
+    from zonos_tpu_torch import config as C
+
+    if torch.device(device).type == "cpu":
+        return {"transformer": C.tiny_transformer_config(), "hybrid": C.tiny_hybrid_config()}
+    t, h = C.zonos_v01_transformer_config(), C.zonos_v01_hybrid_config()
+    if train:
+        t = dataclasses.replace(t, backbone=dataclasses.replace(t.backbone, n_layer=2, attn_layer_idx=(0, 1)))
+    return {"transformer": t,
+            "hybrid": dataclasses.replace(h, backbone=dataclasses.replace(h.backbone, n_layer=2, attn_layer_idx=(1,)))}
+
+
+def _par_model(cfg, device):
+    """The seeded int8 model whose params every rank builds for itself."""
+    from zonos_tpu_torch.models.zonos import Zonos
+
+    return Zonos.from_config(cfg, seed=0, dtype=torch.bfloat16, device=device).quantize().params
+
+
+def _par_cond(d: int, b: int = 1, seed: int = 0) -> np.ndarray:
+    return np.random.default_rng(seed).normal(size=(2 * b, 80, d)).astype(np.float32) * 0.05
+
+
+def _decode_job(params, cfg, cond, frames, sampling, device, mesh=None, batch_size=1, seed=0):
+    """One generate (int8 KV, EOS forbidden) with every launch count set to 0
+    before it → (codes, the prefill's guided logits, stats, launch counts)."""
+    from zonos_tpu_torch.runtime import streaming
+    from zonos_tpu_torch.runtime.generate import generate
+
+    wrappers = _kernel_wrappers()
+    for k in wrappers:
+        k.launches = 0
+    first = []
+    sample = streaming.sample_from_logits
+
+    def recording(logits, *a, **k):
+        if not first:
+            first.append(logits.float().cpu())
+        return sample(logits, *a, **k)
+
+    streaming.sample_from_logits = recording
+    try:
+        stats = {}
+        codes = generate(params, cfg, cond, max_new_tokens=frames, cfg_scale=2.0, batch_size=batch_size,
+                         sampling_params=sampling, seed=seed, forbid_eos=True, kv_int8=True, stats=stats,
+                         device=device, mesh=mesh)
+    finally:
+        streaming.sample_from_logits = sample
+    return codes, first[0], stats, {k.__name__: k.launches for k in wrappers}
+
+
+def _forced_agreement(params, cfg, cond, codes, device, mesh=None) -> dict:
+    """Teacher forcing of greedy codes [1, n_q, T] from another run: this
+    model's greedy pick at each step of generate's loop (after the bias and
+    the repetition penalty) while the step's input frame holds given codes
+    only, that input taken from ``codes``; the share of (step, codebook)
+    picks equal to the given token."""
+    from zonos_tpu_torch.ops.delay_pattern import apply_delay_pattern_np
+    from zonos_tpu_torch.ops.sampling import SamplingParams, sample_from_logits
+    from zonos_tpu_torch.parallel.mesh import local_config
+    from zonos_tpu_torch.runtime.generate import _context_slice, _decode_logits, prepare_request
+    from zonos_tpu_torch.runtime.streaming import _make_bias, build_prefill_fn
+
+    greedy = SamplingParams(temperature=0.0)
+    n_q, t = codes.shape[1:]
+    lcfg = cfg if mesh is None else local_config(cfg, mesh.tp)
+    req = prepare_request(lcfg, cond, None, t, 2.0, 1, greedy, 0, torch.bfloat16, True, True, device)
+    st = req.statics
+    c = build_prefill_fn(st)(params, req.cond_padded, req.delayed_init, 1, req.pad_amount, 2.0, req.generators,
+                             mesh=mesh)
+    forced = torch.as_tensor(apply_delay_pattern_np(codes.astype(np.int32), cfg.masked_token_id), device=device)
+    d = c.delayed_codes
+    picks = [d[0, :, 1].cpu()]  # the prefill's pick: delayed index 1
+    d[:, :, 1] = forced[:, :, 1]
+    bias = _make_bias(st, device)
+    for o in range(2, t + 2):  # the last step whose input frame is all given codes (or leading MASKs)
+        logits, c.cache = _decode_logits(params, st, d[:, :, o - 1:o], c.cache, st.prefill_len + o - 2,
+                                         req.pad_amount, 2.0, mesh=mesh)
+        ctx, valid = _context_slice(d, o, st.sampling.repetition_penalty_window)
+        picks.append(sample_from_logits(logits + bias, greedy, generated_tokens=ctx, generated_valid_len=valid)[0]
+                     .cpu())
+        d[:, :, o] = forced[:, :, o]
+    agree = compared = 0
+    for j, pick in enumerate(picks):  # pick j chose delayed index j + 1: codebook k's frame j - k
+        for k in range(n_q):
+            f = j - k
+            if 0 <= f < t and codes[0, k, f] < 1024:
+                compared += 1
+                agree += int(pick[k]) == int(codes[0, k, f])
+    return {"compared": compared, "agree": agree, "share": agree / max(compared, 1)}
+
+
+def _par_infer_rank(backend, device, refs, frames):
+    """A rank of the 2-rank inference group: tp = 2 for each model (greedy
+    codes, first logits and launch counts, teacher forcing along the
+    one-device codes ``refs[name]``, then min-p 0.1), and dp = 2 over 4 rows
+    of the flagship (min-p 0.1, one int seed) with the one-device generate of
+    this rank's 2 rows at their global seeds."""
+    from zonos_tpu_torch.ops.sampling import SamplingParams
+    from zonos_tpu_torch.parallel.mesh import batch_rows, make_mesh, shard_params
+    from zonos_tpu_torch.runtime.generate import _cfg_rows, postprocess_codes_batched, prepare_request, run_request
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    greedy, min_p = SamplingParams(temperature=0.0), SamplingParams(min_p=0.1)
+    tp = make_mesh(dp=1, tp=2, backend=backend, device=device)
+    dp = make_mesh(dp=2, tp=1, backend=backend, device=device)
+    dev = tp.device
+    with torch.no_grad():
+        for name, cfg in _par_configs(dev).items():
+            full = _par_model(cfg, dev)
+            if name == "transformer":  # dp first: it runs the whole model
+                cond4 = _par_cond(cfg.backbone.d_model, b=4, seed=3)
+                _decode_job(full, cfg, cond4, WARM_FRAMES, min_p, dev, mesh=dp, batch_size=4, seed=5)
+                codes, _, stats, counts = _decode_job(full, cfg, cond4, frames[name], min_p, dev, mesh=dp,
+                                                      batch_size=4, seed=5)
+                rows = batch_rows(dp, 4)
+                req = prepare_request(cfg, _cfg_rows(cond4, rows, 4), None, frames[name], 2.0, 2, min_p, 5,
+                                      torch.bfloat16, True, True, dev, first_row=rows.start)
+                ref, _ = postprocess_codes_batched(*run_request(full, req, 2.0), cfg)
+                out["dp2"] = {"codes": codes, "rows": (rows.start, rows.stop), "ref": ref, "stats": stats,
+                              "counts": counts}
+            local = shard_params(tp, cfg, full)
+            del full
+            cond = _par_cond(cfg.backbone.d_model)
+            _decode_job(local, cfg, cond, WARM_FRAMES, greedy, dev, mesh=tp)
+            codes, logits, stats, counts = _decode_job(local, cfg, cond, frames[name], greedy, dev, mesh=tp)
+            forced = _forced_agreement(local, cfg, cond, refs[name]["codes"], dev, mesh=tp)
+            mp_codes, _, mp_stats, _ = _decode_job(local, cfg, cond, frames[name], min_p, dev, mesh=tp, seed=7)
+            out[name] = {"codes": codes, "corr": _corr(logits, refs[name]["logits"]), "stats": stats,
+                         "counts": counts, "forced": forced, "min_p_codes": mp_codes, "min_p_stats": mp_stats}
+            del local
+    return out
+
+
+def _par_train_rank(backend, device, steps):
+    """A rank of the dp 2 × tp 2 training group, f32 with TF32 off: at 2
+    layers of full width, the sharded loss and this rank's gradients against
+    the one-device loss_fn's (computed here on the same weights), then
+    ``steps`` sharded AdamW steps (warmup 1) on the fixed batch."""
+    from zonos_tpu_torch.models.zonos import Zonos
+    from zonos_tpu_torch.parallel.mesh import local_config, make_mesh, shard_params, shard_tree
+    from zonos_tpu_torch.training import train as T
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_mesh(dp=2, tp=2, backend=backend, device=device)
+    dev = mesh.device
+    out = {}
+    for name, full in _par_configs(dev, train=True).items():
+        m = Zonos.from_config(full, seed=1, dtype=torch.float32, device=dev)
+        params = {k: m.params[k] for k in ("embeddings", "heads", "backbone")}
+        del m
+        rng = np.random.default_rng(2)
+        d = full.backbone.d_model
+        cond = rng.normal(size=(4, 32, d)).astype(np.float32) * 0.05
+        codes = rng.integers(0, 1024, size=(4, 9, 48)).astype(np.int32)
+        mask = np.ones((4, 47), bool)
+        mask[1, 30:] = False
+        leaves = T.trainable_leaves(params)
+        loss1, g1 = T.value_and_grad(lambda c, dc, mk: T.loss_terms(params, full, c, dc, mk), leaves, 1,
+                                     cond, codes, mask)
+        names = [p for p, t in T.named_leaves(params) if t.is_floating_point()]
+        g1_local = dict(T.named_leaves(shard_tree(full, _tree_of(params, names, g1), mesh.tp, mesh.tp_rank)))
+        del g1
+        local = shard_params(mesh, full, params)
+        lcfg = local_config(full, mesh.tp)
+        batch = T.shard_batch(mesh, cond, codes, mask)
+        lleaves = T.trainable_leaves(local)
+        loss, g = T.sharded_value_and_grad(
+            mesh, lambda c, dc, mk: T.loss_terms(local, lcfg, c, dc, mk, mesh=mesh), lleaves, 1, *batch)
+        lnames = [p for p, t in T.named_leaves(local) if t.is_floating_point()]
+        cos = {p: _cos(a, g1_local[p]) for p, a in zip(lnames, g)}
+        del g, g1_local, local
+        opt = T.make_optimizer(lr=1e-3, warmup=1)
+        state, step = T.make_sharded_train_step(mesh, full, opt, params)
+        losses, secs = [], []
+        for _ in range(steps):
+            t = time.perf_counter()
+            state, lo = step(state, *batch)
+            lo = float(lo)  # syncs
+            secs.append(time.perf_counter() - t)
+            losses.append(lo)
+        out[name] = {"loss": float(loss), "loss_one_device": float(loss1),
+                     "loss_rel": abs(float(loss) - float(loss1)) / abs(float(loss1)),
+                     "grad_cos_min": min(cos.values()), "grad_cos_argmin": min(cos, key=cos.get),
+                     "losses": losses, "s_per_step": secs}
+        del state, params
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def _tree_of(tree, names, flat):
+    """{path: tensor} of ``names`` → ``tree``'s nested shape (lists kept)."""
+    lookup = dict(zip(names, flat))
+
+    def walk(t, path):
+        if isinstance(t, dict):
+            return {k: walk(v, f"{path}{k}/") for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return type(t)(walk(v, f"{path}{i}/") for i, v in enumerate(t))
+        return None if t is None else lookup[path[:-1]]
+
+    return walk(tree, "")
+
+
+def _phase_parallel(card: str) -> dict:
+    """Phase 12: tp = 2 and dp = 2 inference and the dp 2 × tp 2 train step,
+    as ranks spawned on the one card over gloo. Returns the launch counts of
+    the tp and dp runs per path."""
+    from zonos_tpu_torch.ops.sampling import SamplingParams
+    from zonos_tpu_torch.parallel.mesh import spawn
+
+    t0 = time.perf_counter()
+    frames = {"transformer": PAR_FRAMES, "hybrid": PAR_HYBRID_FRAMES}
+    refs, one = {}, {}
+    with torch.no_grad():
+        for name, cfg in _par_configs().items():  # the one-device runs, before the ranks start
+            params = _par_model(cfg, "cuda")
+            cond = _par_cond(cfg.backbone.d_model)
+            _decode_job(params, cfg, cond, WARM_FRAMES, SamplingParams(temperature=0.0), "cuda")
+            codes, logits, stats, _ = _decode_job(params, cfg, cond, frames[name], SamplingParams(temperature=0.0),
+                                                  "cuda")
+            refs[name] = {"codes": codes, "logits": logits}
+            one[name] = stats["decode_s"] * 1e3 / stats["decode_steps"]
+            del params
+    torch.cuda.empty_cache()
+    print(f"phase12 backend gloo, world 2 (tp 2; dp 2) then 4 (dp 2 x tp 2), ranks on one card: {card}", flush=True)
+    t = time.perf_counter()
+    infer = spawn(_par_infer_rank, 2, "gloo", "cuda", refs, frames, timeout=600)
+    infer_s = time.perf_counter() - t
+    t = time.perf_counter()
+    train = spawn(_par_train_rank, 4, "gloo", "cuda", 3, timeout=600)
+    train_s = time.perf_counter() - t
+
+    counts_by_path = {}
+    for name, cfg in _par_configs().items():
+        L = cfg.backbone.n_layer
+        n_attn = len(cfg.backbone.attn_layer_idx)
+        per_rank = [r[name] for r in infer]
+        if not all(np.array_equal(p["codes"], per_rank[0]["codes"]) for p in per_rank) or \
+                not all(np.array_equal(p["min_p_codes"], per_rank[0]["min_p_codes"]) for p in per_rank):
+            _fail(f"phase 12: tp {name}: the two tp ranks' codes differ")
+        for p in per_rank:
+            steps = p["stats"]["decode_steps"]
+            # per step: in_proj + out_proj per layer and the heads on K1, K2 per
+            # attention layer, K3 per MLP; the prefill's heads on K1
+            want = {"int8_matmul": steps * (2 * L + 1) + 1, "attn_core_int8": steps * n_attn,
+                    "fused_mlp_int8": steps * L, "fused_mlp_int8_split": 0, "int4_matmul": 0}
+            if p["counts"] != want:
+                _fail(f"phase 12: tp {name} launch counts {p['counts']} != expected {want}")
+            if p["codes"].shape != (1, cfg.codebook_dimension, frames[name]):
+                _fail(f"phase 12: tp {name} codes shape {p['codes'].shape}")
+        res = {
+            "frames": frames[name], "layers": L,
+            "first_logits_corr": min(p["corr"] for p in per_rank),
+            "forced_agreement": min(p["forced"]["share"] for p in per_rank),
+            "forced_compared": per_rank[0]["forced"]["compared"],
+            "greedy_equal_share": float(np.mean(per_rank[0]["codes"] == refs[name]["codes"])),
+            "ms_per_frame_tp2": [p["stats"]["decode_s"] * 1e3 / p["stats"]["decode_steps"] for p in per_rank],
+            "ms_per_frame_tp2_min_p": [p["min_p_stats"]["decode_s"] * 1e3 / p["min_p_stats"]["decode_steps"]
+                                       for p in per_rank],
+            "ms_per_frame_one_device": one[name],
+            "prefill_ms_tp2": [p["stats"]["prefill_s"] * 1e3 for p in per_rank],
+        }
+        print(f"phase12 tp2 {name}:", json.dumps(res), flush=True)
+        if res["first_logits_corr"] < 0.999 or res["forced_agreement"] < 0.90:
+            _fail(f"phase 12: tp {name}: first-step logits corr {res['first_logits_corr']:.6f} (gate 0.999), "
+                  f"teacher-forced agreement {res['forced_agreement']:.4f} (gate 0.90)")
+        counts_by_path["tp2" if name == "transformer" else "tp2_hybrid"] = per_rank[0]["counts"]
+
+    cfg = _par_configs()["transformer"]
+    dp_all = [r["dp2"] for r in infer]
+    for p in dp_all:
+        lo, hi = p["rows"]
+        if p["codes"].shape != (4, cfg.codebook_dimension, PAR_FRAMES) or not np.array_equal(p["codes"][lo:hi],
+                                                                                            p["ref"]):
+            _fail(f"phase 12: dp rows {lo}-{hi} differ from the one-device generate of those rows")
+        if not np.array_equal(p["codes"], dp_all[0]["codes"]):
+            _fail("phase 12: the dp ranks returned different codes")
+        steps = p["stats"]["decode_steps"]
+        want = {"int8_matmul": steps * 49 + 1, "attn_core_int8": steps * 24, "fused_mlp_int8": steps * 24,
+                "fused_mlp_int8_split": 0, "int4_matmul": 0}
+        if p["counts"] != want:
+            _fail(f"phase 12: dp launch counts {p['counts']} != expected {want}")
+    counts_by_path["dp2"] = dp_all[0]["counts"]
+    print("phase12 dp2 transformer (B 4, 2 rows per rank):", json.dumps({
+        "rows_bit_equal": True, "ms_per_frame": [p["stats"]["decode_s"] * 1e3 / p["stats"]["decode_steps"]
+                                                 for p in dp_all]}), flush=True)
+
+    for name in ("transformer", "hybrid"):
+        per_rank = [r[name] for r in train]
+        res = {"loss": per_rank[0]["loss"], "loss_one_device": per_rank[0]["loss_one_device"],
+               "loss_rel": max(p["loss_rel"] for p in per_rank),
+               "grad_cos_min": min(p["grad_cos_min"] for p in per_rank),
+               "grad_cos_argmin": min(per_rank, key=lambda p: p["grad_cos_min"])["grad_cos_argmin"],
+               "losses": per_rank[0]["losses"], "s_per_step": [p["s_per_step"] for p in per_rank]}
+        print(f"phase12 train dp2 x tp2 {name} (2 layers):", json.dumps(res), flush=True)
+        losses = res["losses"]
+        if res["loss_rel"] > 1e-4 or res["grad_cos_min"] < 0.9999:
+            _fail(f"phase 12: sharded {name} loss {res['loss_rel']:.3g} relative, gradient cosine "
+                  f"{res['grad_cos_min']:.6f} (gates 1e-4, 0.9999)")
+        if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+            _fail(f"phase 12: sharded {name} steps: losses {losses} not finite and falling")
+        if any(p["losses"] != losses for p in per_rank):
+            _fail(f"phase 12: sharded {name}: the ranks' losses differ")
+    print(f"phase12 spawn seconds: inference {infer_s:.1f}, training {train_s:.1f}; total "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return counts_by_path
+
+
+def _phase_parallel_main() -> int:
+    """``--phase12``: phase 12 in a process of its own (started by
+    ``_child_phase``). Prints the launch counts as its last line."""
+    from zonos_tpu_torch.ops import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.build_all()  # built by the parent: finds every library
+    counts = _phase_parallel(_card_line())
+    print(PHASE12_RESULT, json.dumps(counts), flush=True)
+    return 0
+
+
+# ---------------------------------------------------------------------------
 # Phase 9: the profiler, last
 # ---------------------------------------------------------------------------
 
@@ -2326,9 +2690,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     server_counts = _child_phase(10, [repr(result["rtf"])], PHASE10_RESULT)
     train_counts = _child_phase(11, [], PHASE11_RESULT)
+    par_counts = _child_phase(12, [], PHASE12_RESULT)
 
     by_path = {"int8": counts, "int4": facade_counts, "hybrid_int8": hybrid_counts, "server": server_counts,
-               **train_counts}
+               **train_counts, **par_counts}
 
     def entry(name, source, replaces, rows, launches):
         main_row = rows[0]
@@ -2346,7 +2711,7 @@ def main() -> int:
         entry("attn_core_int8", "zonos_tpu_torch/csrc/attn_core_int8.cu", "zonos_tpu/ops/pallas_attention.py:98",
               k2, counts["attn_core_int8"]),
         entry("fused_mlp_int8", "zonos_tpu_torch/csrc/fused_mlp_int8.cu", "zonos_tpu/ops/pallas_matmul.py:200",
-              [k3["K3"], k3["K3 hybrid"]], counts["fused_mlp_int8"]),
+              [k3["K3"], k3["K3 hybrid"], k3["K3 tp2"]], counts["fused_mlp_int8"]),
         entry("fused_mlp_int8_split", "zonos_tpu_torch/csrc/fused_mlp_int8.cu", "zonos_tpu/ops/pallas_matmul.py:250",
               [k3["K3s"]], counts["fused_mlp_int8_split"]),
         entry("int4_matmul", "zonos_tpu_torch/csrc/int4_matmul.cu", "zonos_tpu/ops/pallas_matmul.py:120",
@@ -2372,4 +2737,6 @@ if __name__ == "__main__":
         sys.exit(_phase_server_main(float(sys.argv[2])))
     if sys.argv[1:] == ["--phase11"] and torch.cuda.is_available():
         sys.exit(_phase_train_main())
+    if sys.argv[1:] == ["--phase12"] and torch.cuda.is_available():
+        sys.exit(_phase_parallel_main())
     sys.exit(main())

@@ -62,7 +62,8 @@ def test_serving_modules_import_without_jax(module):
 
 
 TRAINING_MODULES = ["training.train", "training.lora", "training.data", "training.finetune_lora",
-                    "runtime.speculative", "utils.profiling", "testing.asr_check"]
+                    "runtime.speculative", "utils.profiling", "testing.asr_check", "parallel", "parallel.mesh",
+                    "parallel.comm"]
 
 
 @pytest.mark.parametrize("module", TRAINING_MODULES)
@@ -115,7 +116,7 @@ def test_quantize_failure_is_raised_not_served_around(monkeypatch, tmp_path):
 @pytest.mark.parametrize("entry", ["zonos", "dac", "generate", "facade", "generate_audio", "stream", "speaker",
                                    "default_speaker", "speaker_audio", "dac_encode", "tts", "hybrid", "from_local",
                                    "from_pretrained", "model_manager", "server", "finetune_lora", "speculative",
-                                   "asr_check"])
+                                   "asr_check", "make_mesh", "spawn"])
 def test_entry_points_default_to_cuda(monkeypatch, tmp_path, entry):
     """Every entry point raises without a card unless the caller asks for the
     CPU. The facade's methods (prepare_conditioning, generate, generate_audio,
@@ -185,6 +186,14 @@ def test_entry_points_default_to_cuda(monkeypatch, tmp_path, entry):
             from zonos_tpu_torch.testing import asr_check
 
             asr_check.transcribe([0.0] * 16000, 16000)
+        elif entry == "make_mesh":
+            from zonos_tpu_torch.parallel.mesh import make_mesh
+
+            make_mesh(backend="gloo")
+        elif entry == "spawn":
+            from zonos_tpu_torch.parallel.mesh import spawn
+
+            spawn(print, 2, "gloo")
         else:
             next(streaming.generate_stream({}, tiny_transformer_config(), cond))
 

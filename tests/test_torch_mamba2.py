@@ -99,6 +99,21 @@ def test_ssd_chunked_unaligned_length(length, with_init):
     _close(st, rst)
 
 
+def test_ssd_chunked_gradient_finite_where_decay_overflows():
+    """A chunk whose decay spans more than f32's exp range (Σ dt·|A| ≈ 600 over
+    a chunk): the values equal JAX's and every gradient is finite (the
+    intra-chunk decays are masked before the exp, not after)."""
+    x, dt, A, B_, C_ = _ssd_inputs(5, length=16)
+    dt, A = dt * 0 + 3.0, A * 0 - 12.0
+    ry, rst = JM.ssd_chunked(*(jnp.asarray(a) for a in (x, dt, A, B_, C_)), 16)
+    ins = [_t(a).requires_grad_(True) for a in (x, dt, A, B_, C_)]
+    y, st = TM.ssd_chunked(*ins, 16)
+    _close(y.detach(), ry)
+    _close(st.detach(), rst)
+    (y.square().sum() + st.square().sum()).backward()
+    assert all(torch.isfinite(t.grad).all() for t in ins)
+
+
 def test_ssd_chunk_boundary_continuity_with_init_state():
     """Two halves, the second started from the first's state, equal one pass."""
     x, dt, A, B_, C_ = (_t(a) for a in _ssd_inputs(11, length=24))

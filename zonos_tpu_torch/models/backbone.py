@@ -24,9 +24,11 @@ def create_cache(cfg: BackboneConfig, batch_size: int, max_seqlen: int, dtype=to
 
 
 def backbone_forward(params, cfg: BackboneConfig, x, cache, write_start, pad_amount, attend_len,
-                     pos_offset=None, gap_len=None, gap_start=0, remat: bool = False):
+                     pos_offset=None, gap_len=None, gap_start=0, remat: bool = False, mesh=None):
     """(x [B,S,D], cache) → (normed hidden [B,S,D], cache). S > 1 ⇒ prefill.
-    ``remat`` (cache None, training) recomputes each layer in the backward pass."""
+    ``remat`` (cache None, training) recomputes each layer in the backward pass.
+    ``mesh`` (``parallel.mesh.Mesh``) runs this rank's tp shards: params from
+    ``shard_params``, cfg and cache from ``local_config``."""
     forward = hybrid_forward if cfg.is_hybrid else transformer_forward
     return forward(params, cfg, x, cache, write_start, pad_amount, attend_len,
-                   pos_offset=pos_offset, gap_len=gap_len, gap_start=gap_start, remat=remat)
+                   pos_offset=pos_offset, gap_len=gap_len, gap_start=gap_start, remat=remat, mesh=mesh)

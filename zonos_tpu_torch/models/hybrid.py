@@ -14,6 +14,12 @@ the transformer's does: int8 projections (Mamba and attention in_proj and
 out_proj) through K1, int4 ones (the MLPs' too) through K4, the int8 MLPs
 through K3 (``fused_mlp_int8``) and attention over the int8 KV cache through
 K2. The prefill stays on torch.matmul.
+
+Under tensor parallelism (a ``mesh`` with tp > 1) the attention layers and
+the MLPs run this rank's heads and columns as the transformer's do, a
+row-parallel output bias added once after the reduce; the Mamba2 mixer
+follows ``ops.mamba2``'s tp path (in_proj column-parallel and gathered, the
+conv and scan replicated, out_proj row-parallel).
 """
 
 from __future__ import annotations
@@ -25,7 +31,7 @@ import torch
 import torch.utils.checkpoint
 
 from zonos_tpu_torch.config import BackboneConfig
-from zonos_tpu_torch.models.transformer import _decode_mlp, _kv_quantize, _layer
+from zonos_tpu_torch.models.transformer import _kv_quantize, _layer, mlp, row_parallel
 from zonos_tpu_torch.ops.attention import (
     causal_prefix_mask, decode_mask, gqa_attention, gqa_attention_quantized,
 )
@@ -34,6 +40,7 @@ from zonos_tpu_torch.ops.mamba2 import init_mamba2_params, mamba2_dims, mamba2_p
 from zonos_tpu_torch.ops.norms import layer_norm, rms_norm
 from zonos_tpu_torch.ops.quant import qeinsum
 from zonos_tpu_torch.ops.rope import apply_rope_neox, rope_rows
+from zonos_tpu_torch.parallel.comm import copy_to_tp
 
 
 @functools.lru_cache(maxsize=32)
@@ -116,22 +123,13 @@ def _norm(x: torch.Tensor, p: dict, cfg: BackboneConfig) -> torch.Tensor:
     return layer_norm(x, p["scale"], p.get("bias"), cfg.norm_epsilon)
 
 
-def _mlp(p: dict, x: torch.Tensor) -> torch.Tensor:
-    """Gated-SiLU MLP: the int8 decode step through K3, else two qeinsums (K4
-    twice on int4 weights at decode)."""
-    fused = _decode_mlp(x, p)
-    if fused is not None:
-        return fused
-    y, gate = torch.chunk(qeinsum("bsd,de->bse", x, p["fc1"]), 2, dim=-1)
-    return qeinsum("bsf,fd->bsd", y * torch.nn.functional.silu(gate), p["fc2"])
-
-
 def _attn_mixer(p: dict, cfg: BackboneConfig, x: torch.Tensor, cache: HybridCache | None, gi: int,
-                write_start: int, mask, attend_len: int, pos_offset=None, decode_args=None) -> torch.Tensor:
+                write_start: int, mask, attend_len: int, pos_offset=None, decode_args=None,
+                mesh=None) -> torch.Tensor:
     """Attention mixer of group gi over normed x [B, S, D], writing the cache in place."""
     b, s, _ = x.shape
     hq, hkv, dh = cfg.attn_cfg.num_heads, cfg.attn_cfg.num_heads_kv, cfg.head_dim
-    qkv = qeinsum("bsd,de->bse", x, p["in_proj"])
+    qkv = qeinsum("bsd,de->bse", copy_to_tp(x, mesh), p["in_proj"])
     if p.get("in_proj_b") is not None:
         qkv = qkv + p["in_proj_b"].to(qkv.dtype)
     q, k, v = torch.split(qkv, [hq * dh, hkv * dh, hkv * dh], dim=-1)
@@ -167,22 +165,23 @@ def _attn_mixer(p: dict, cfg: BackboneConfig, x: torch.Tensor, cache: HybridCach
         cache.kv_k[gi][:, write_start:end] = k
         cache.kv_v[gi][:, write_start:end] = v
         att = gqa_attention(q, cache.kv_k[gi][:, :attend_len], cache.kv_v[gi][:, :attend_len], mask)
-    out = qeinsum("bse,ed->bsd", att.reshape(b, s, hq * dh), p["out_proj"])
+    out = row_parallel("bse,ed->bsd", att.reshape(b, s, hq * dh), p["out_proj"], mesh)
     if p.get("out_proj_b") is not None:
         out = out + p["out_proj_b"].to(out.dtype)
     return out
 
 
 def _mamba_layer(layer_p: dict, cfg: BackboneConfig, x: torch.Tensor, conv_state, ssm_state, seq_mask,
-                 prefill: bool):
+                 prefill: bool, mesh=None):
     h = _norm(x, layer_p["norm"], cfg)
     if prefill:
-        out, conv_state, ssm_state = mamba2_prefill(layer_p["mixer"], h, cfg.ssm_cfg, seq_mask)
+        out, conv_state, ssm_state = mamba2_prefill(layer_p["mixer"], h, cfg.ssm_cfg, seq_mask, mesh=mesh)
     else:
-        out, conv_state, ssm_state = mamba2_step(layer_p["mixer"], h, cfg.ssm_cfg, conv_state, ssm_state)
+        out, conv_state, ssm_state = mamba2_step(layer_p["mixer"], h, cfg.ssm_cfg, conv_state, ssm_state,
+                                                 mesh=mesh)
     x = x + out
     if layer_p.get("mlp") is not None:
-        x = x + _mlp(layer_p["mlp"], _norm(x, layer_p["norm2"], cfg))
+        x = x + mlp(_norm(x, layer_p["norm2"], cfg), layer_p["mlp"], mesh)
     return x, conv_state, ssm_state
 
 
@@ -198,6 +197,7 @@ def hybrid_forward(
     gap_len: torch.Tensor | None = None,  # [B] dead cache span after the prefill
     gap_start: int = 0,
     remat: bool = False,
+    mesh=None,  # parallel.mesh.Mesh for tensor parallelism (cfg: local_config's)
 ) -> tuple[torch.Tensor, HybridCache | None]:
     """All hybrid layers over x; S > 1 is the prefill, S == 1 a decode step.
 
@@ -226,14 +226,15 @@ def hybrid_forward(
 
     def attn_layer(gp, gi, x):
         out = _attn_mixer(gp["mixer"], cfg, _norm(x, gp["norm"], cfg), cache, gi, write_start, mask,
-                          attend_len if cache is not None else s, None if prefill else pos_offset, decode_args)
+                          attend_len if cache is not None else s, None if prefill else pos_offset, decode_args,
+                          mesh)
         x = x + out
         if gp.get("mlp") is not None:
-            x = x + _mlp(gp["mlp"], _norm(x, gp["norm2"], cfg))
+            x = x + mlp(_norm(x, gp["norm2"], cfg), gp["mlp"], mesh)
         return x
 
     def mamba_layer_no_cache(layer_p, x):
-        return _mamba_layer(layer_p, cfg, x, None, None, seq_mask, prefill)[0]
+        return _mamba_layer(layer_p, cfg, x, None, None, seq_mask, prefill, mesh)[0]
 
     ckpt = remat and cache is None
     for gi, (kind, run) in enumerate(layer_groups(cfg)):
@@ -248,7 +249,7 @@ def hybrid_forward(
                      if ckpt else mamba_layer_no_cache(_layer(gp, i), x))
                 continue
             x, conv_state, ssm_state = _mamba_layer(_layer(gp, i), cfg, x, cache.conv[gi][i], cache.ssm[gi][i],
-                                                    seq_mask, prefill)
+                                                    seq_mask, prefill, mesh)
             cache.conv[gi][i].copy_(conv_state)
             cache.ssm[gi][i].copy_(ssm_state)
     x = layer_norm(x, params["norm_f"]["scale"], params["norm_f"]["bias"], cfg.norm_epsilon)

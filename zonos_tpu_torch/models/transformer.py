@@ -12,6 +12,12 @@ through K4 (``ops.quant.qeinsum``), attention over the int8 cache through K2
 (``ops.cuda_attention``), and the int8 MLP through K3
 (``ops.cuda_matmul.fused_mlp_int8``: fc1 and the gate, then fc2). The
 prefill stays on torch.matmul.
+
+Under tensor parallelism (a ``mesh`` with tp > 1, params from
+``parallel.mesh.shard_params`` and the config from ``local_config``) each
+rank runs its own heads and MLP columns through the same kernels, and the
+row-parallel out_proj and fc2 end in an all-reduce over tp
+(``parallel.comm``).
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ from zonos_tpu_torch.ops.cuda_matmul import MAX_ROWS, fused_mlp_int8
 from zonos_tpu_torch.ops.norms import layer_norm
 from zonos_tpu_torch.ops.quant import is_quantized, qeinsum
 from zonos_tpu_torch.ops.rope import apply_rope, rope_rows
+from zonos_tpu_torch.parallel.comm import copy_to_tp, reduce_from_tp
 
 
 @dataclasses.dataclass
@@ -115,12 +122,32 @@ def _layer(tree, li: int):
 
 
 def _decode_mlp(h2: torch.Tensor, mlp_p: dict) -> torch.Tensor | None:
-    """The decode step's int8 MLP through K3, or None where K3 does not apply."""
+    """The decode step's int8 MLP through K3 (f32 [B, 1, D]), or None where K3
+    does not apply."""
     fc1, fc2 = mlp_p["fc1"], mlp_p["fc2"]
     if h2.shape[1] != 1 or h2.shape[0] > MAX_ROWS or not (is_quantized(fc1) and is_quantized(fc2)):
         return None
-    y = fused_mlp_int8(h2[:, 0].contiguous(), fc1["q"], fc1["s"], fc2["q"], fc2["s"])
-    return y[:, None, :].to(h2.dtype)
+    return fused_mlp_int8(h2[:, 0].contiguous(), fc1["q"], fc1["s"], fc2["q"], fc2["s"])[:, None, :]
+
+
+def row_parallel(eq: str, x: torch.Tensor, w, mesh) -> torch.Tensor:
+    """``qeinsum(eq, x, w)`` for a row-parallel w (out_proj, fc2): over tp,
+    this rank's f32 partial summed over tp, then x's dtype (one rounding, as
+    one device rounds its f32 sum)."""
+    return reduce_from_tp(qeinsum(eq, x, w, out_dtype=torch.float32), mesh).to(x.dtype)
+
+
+def mlp(h2: torch.Tensor, mlp_p: dict, mesh=None) -> torch.Tensor:
+    """Gated-SiLU MLP over normed h2: the int8 decode step through K3, else
+    two qeinsums (K4 twice on int4 weights at decode); over tp, this rank's
+    columns of y and the gate and rows of fc2, the f32 output summed over
+    tp. In h2's dtype."""
+    h2 = copy_to_tp(h2, mesh)
+    out = _decode_mlp(h2, mlp_p)
+    if out is None:
+        y, gate = torch.chunk(qeinsum("bsd,de->bse", h2, mlp_p["fc1"]), 2, dim=-1)
+        out = qeinsum("bsf,fd->bsd", y * torch.nn.functional.silu(gate), mlp_p["fc2"], out_dtype=torch.float32)
+    return reduce_from_tp(out, mesh).to(h2.dtype)
 
 
 def _attn_block(
@@ -134,12 +161,13 @@ def _attn_block(
     mask: torch.Tensor | None,  # [B, S, attend_len] bool (unused by the K2 decode route)
     attend_len: int,
     decode_args: tuple | None = None,  # (write_index int32 [1], pad [B], gap_start, gap_len) for K2
+    mesh=None,  # parallel.mesh.Mesh: this rank's heads and MLP columns, reduced over tp
 ) -> torch.Tensor:
     """Attention + MLP sub-block of layer li, for prefill (S > 1) and decode (S = 1)."""
     b, s, _ = x.shape
     hq, hkv, dh = cfg.attn_cfg.num_heads, cfg.attn_cfg.num_heads_kv, cfg.head_dim
 
-    h = layer_norm(x, layer_p["norm1"]["scale"], layer_p["norm1"]["bias"], cfg.norm_epsilon)
+    h = copy_to_tp(layer_norm(x, layer_p["norm1"]["scale"], layer_p["norm1"]["bias"], cfg.norm_epsilon), mesh)
     qkv = qeinsum("bsd,de->bse", h, layer_p["attn"]["in_proj"])
     q, k, v = torch.split(qkv, [hq * dh, hkv * dh, hkv * dh], dim=-1)
     q = apply_rope(q.reshape(b, s, hq, dh), freqs)
@@ -175,15 +203,9 @@ def _attn_block(
         cache.k[li, :, write_start:end] = k
         cache.v[li, :, write_start:end] = v
         att = gqa_attention(q, cache.k[li, :, :attend_len], cache.v[li, :, :attend_len], mask)
-    x = x + qeinsum("bse,ed->bsd", att.reshape(b, s, hq * dh), layer_p["attn"]["out_proj"])
-
+    x = x + row_parallel("bse,ed->bsd", att.reshape(b, s, hq * dh), layer_p["attn"]["out_proj"], mesh)
     h2 = layer_norm(x, layer_p["norm2"]["scale"], layer_p["norm2"]["bias"], cfg.norm_epsilon)
-    fused = _decode_mlp(h2, layer_p["mlp"])
-    if fused is not None:
-        return x + fused
-    yg = qeinsum("bsd,de->bse", h2, layer_p["mlp"]["fc1"])
-    y, gate = torch.chunk(yg, 2, dim=-1)
-    return x + qeinsum("bsf,fd->bsd", y * torch.nn.functional.silu(gate), layer_p["mlp"]["fc2"])
+    return x + mlp(h2, layer_p["mlp"], mesh)
 
 
 def transformer_forward(
@@ -198,6 +220,7 @@ def transformer_forward(
     gap_len: torch.Tensor | None = None,  # [B] dead cache span after the prefill
     gap_start: int = 0,  # where the dead span begins (prefill_len)
     remat: bool = False,  # cache None: recompute each layer in the backward pass
+    mesh=None,  # parallel.mesh.Mesh for tensor parallelism (cfg: local_config's)
 ) -> tuple[torch.Tensor, KVCache | None]:
     """Run all layers over x, updating the cache in place. Prefill and decode.
 
@@ -231,7 +254,7 @@ def transformer_forward(
 
     for li in range(cfg.n_layer):
         args = (_layer(params["layers"], li), cfg, x, freqs, cache, li, write_start, mask,
-                attend_len if cache is not None else s, decode_args)
+                attend_len if cache is not None else s, decode_args, mesh)
         if remat and cache is None:
             x = torch.utils.checkpoint.checkpoint(_attn_block, *args, use_reentrant=False)
         else:

@@ -13,6 +13,13 @@ depthwise causal conv1d before the SSD carries its last K-1 inputs as state.
 Everything here is plain PyTorch, as the JAX package leaves it to XLA; the
 in_proj and out_proj go through ``ops.quant.qeinsum``, so that a decode row
 reaches K1 (int8) or K4 (int4).
+
+Under tensor parallelism (``mesh`` with tp > 1; JAX's layout of
+``parallel/mesh.hybrid_param_specs``) each rank holds a contiguous 1/tp of
+in_proj's packed output columns and of out_proj's rows. The projected
+activations are gathered over tp, the conv, the scan and the gated norm run
+on them whole and replicated, and each rank's slice of y goes through its
+out_proj rows, reduced over tp.
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ import torch.nn.functional as F
 
 from zonos_tpu_torch.config import SSMConfig
 from zonos_tpu_torch.ops.quant import qeinsum
+from zonos_tpu_torch.parallel.comm import copy_to_tp, gather_from_tp, reduce_from_tp, scatter_to_tp
 
 
 # ---------------------------------------------------------------------------
@@ -82,9 +90,12 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B_: torch.Te
     x_dt = xc * dtc[..., None]
 
     # Inside a chunk (the dual, attention-like form): decay(s → t) = exp(cum_t - cum_s), s <= t.
+    # Masked before the exp: above the diagonal cum_t - cum_s > 0 can overflow
+    # exp to inf, whose gradient through a select after the exp is 0 · inf = NaN.
     seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]  # [B, NC, T, S, H]
     tri = torch.ones((q, q), dtype=torch.bool, device=x.device).tril()
-    l_mat = torch.where(tri[None, None, :, :, None], torch.exp(seg), torch.zeros((), dtype=f32, device=x.device))
+    l_mat = torch.exp(torch.where(tri[None, None, :, :, None], seg, torch.full((), -torch.inf, dtype=f32,
+                                                                               device=x.device)))
     scores = torch.einsum("bcthn,bcshn->bctsh", Ch, Bh) * l_mat
     y_diag = torch.einsum("bctsh,bcshp->bcthp", scores, x_dt)
 
@@ -161,7 +172,17 @@ def _dt(dt_raw: torch.Tensor, p: dict, cfg: SSMConfig) -> torch.Tensor:
     return _clamp_dt(F.softplus(dt_raw.float() + p["dt_bias"].float()), cfg)
 
 
-def mamba2_prefill(p: dict, x: torch.Tensor, cfg: SSMConfig, seq_mask: torch.Tensor | None = None):
+def _in_proj(eq: str, x: torch.Tensor, w, mesh) -> torch.Tensor:
+    """in_proj: over tp, this rank's columns, gathered to the whole packed axis."""
+    return gather_from_tp(qeinsum(eq, copy_to_tp(x, mesh), w), mesh)
+
+
+def _out_proj(eq: str, y: torch.Tensor, w, mesh) -> torch.Tensor:
+    """out_proj: over tp, this rank's slice of y through its rows, reduced."""
+    return reduce_from_tp(qeinsum(eq, scatter_to_tp(y, mesh), w, out_dtype=torch.float32), mesh).to(y.dtype)
+
+
+def mamba2_prefill(p: dict, x: torch.Tensor, cfg: SSMConfig, seq_mask: torch.Tensor | None = None, mesh=None):
     """The mixer over a whole sequence x [B, L, D], from zero states
     → (y [B, L, D], conv_state [B, K-1, conv_dim], ssm_state [B, H, N, P] f32).
 
@@ -172,7 +193,7 @@ def mamba2_prefill(p: dict, x: torch.Tensor, cfg: SSMConfig, seq_mask: torch.Ten
     dims = mamba2_dims(d_model, cfg)
     d_inner, nheads, gn = dims["d_inner"], dims["nheads"], cfg.ngroups * cfg.d_state
 
-    z, xbc, dt_raw = _split_proj(qeinsum("bld,de->ble", x, p["in_proj"]), d_model, cfg)
+    z, xbc, dt_raw = _split_proj(_in_proj("bld,de->ble", x, p["in_proj"], mesh), d_model, cfg)
     if seq_mask is not None:
         xbc = xbc * seq_mask[..., None].to(xbc.dtype)
     conv0 = torch.zeros((b, cfg.d_conv - 1, dims["conv_dim"]), dtype=x.dtype, device=x.device)
@@ -188,17 +209,18 @@ def mamba2_prefill(p: dict, x: torch.Tensor, cfg: SSMConfig, seq_mask: torch.Ten
                                C_.reshape(b, length, cfg.ngroups, cfg.d_state), cfg.chunk_size)
     y = y + xs * p["D"].float()[None, None, :, None]
     y = _gated_rms_norm(y.reshape(b, length, d_inner).to(x.dtype), z, p["norm_w"], 1e-5)
-    return qeinsum("ble,ed->bld", y, p["out_proj"]), conv_state, ssm_state.float()
+    return _out_proj("ble,ed->bld", y, p["out_proj"], mesh), conv_state, ssm_state.float()
 
 
-def mamba2_step(p: dict, x: torch.Tensor, cfg: SSMConfig, conv_state: torch.Tensor, ssm_state: torch.Tensor):
+def mamba2_step(p: dict, x: torch.Tensor, cfg: SSMConfig, conv_state: torch.Tensor, ssm_state: torch.Tensor,
+                mesh=None):
     """One token x [B, 1, D] → (y [B, 1, D], new conv_state, new ssm_state (f32)).
     The projections see x as [B, 1, D], the shape that takes K1 or K4."""
     b, _, d_model = x.shape
     dims = mamba2_dims(d_model, cfg)
     d_inner, nheads, gn = dims["d_inner"], dims["nheads"], cfg.ngroups * cfg.d_state
 
-    z, xbc, dt_raw = _split_proj(qeinsum("bsd,de->bse", x, p["in_proj"])[:, 0], d_model, cfg)
+    z, xbc, dt_raw = _split_proj(_in_proj("bsd,de->bse", x, p["in_proj"], mesh)[:, 0], d_model, cfg)
     xbc, conv_state = causal_conv1d_step(xbc, p["conv_w"], p["conv_b"], conv_state)
     xs, B_, C_ = torch.split(xbc, [d_inner, gn, gn], dim=-1)
     xs = xs.reshape(b, nheads, cfg.headdim)
@@ -207,7 +229,7 @@ def mamba2_step(p: dict, x: torch.Tensor, cfg: SSMConfig, conv_state: torch.Tens
                             C_.reshape(b, cfg.ngroups, cfg.d_state), ssm_state)
     y = y + xs.float() * p["D"].float()[None, :, None]
     y = _gated_rms_norm(y.reshape(b, 1, d_inner).to(x.dtype), z[:, None], p["norm_w"], 1e-5)
-    return qeinsum("bse,ed->bsd", y, p["out_proj"]), conv_state, ssm_state
+    return _out_proj("bse,ed->bsd", y, p["out_proj"], mesh), conv_state, ssm_state
 
 
 def init_mamba2_params(generator: torch.Generator, d_model: int, cfg: SSMConfig, dtype=torch.bfloat16,

@@ -65,7 +65,7 @@ def is_quantized4(w) -> bool:
     return isinstance(w, dict) and "q4" in w
 
 
-def q4einsum_lastdim(x: torch.Tensor, w: dict) -> torch.Tensor:
+def q4einsum_lastdim(x: torch.Tensor, w: dict, out_dtype=None) -> torch.Tensor:
     """y = x @ dequant(w) for a packed-int4 weight: [..., K] → [..., N].
 
     Decode-shaped inputs (x [B, 1, K] with B <= 16, a 3-D q4) go to the int4
@@ -74,12 +74,13 @@ def q4einsum_lastdim(x: torch.Tensor, w: dict) -> torch.Tensor:
     as JAX's XLA path does.
     """
     q, s = w["q4"], w["s4"]
+    out_dtype = out_dtype or x.dtype
     if x.dim() == 3 and x.shape[1] == 1 and q.dim() == 3 and x.shape[0] <= MAX_ROWS:
-        return int4_matmul(x[:, 0].contiguous(), q, s)[:, None, :].to(x.dtype)
+        return int4_matmul(x[:, 0].contiguous(), q, s)[:, None, :].to(out_dtype)
     g, grp = q.shape[-3], q.shape[-2] * 2
     xg = x.reshape(*x.shape[:-1], g, grp)
     y = torch.einsum("...gk,gkn->...gn", xg, unpack_nibbles(q, x.dtype))
-    return (y.float() * s[..., 0, :]).sum(dim=-2).to(x.dtype)
+    return (y.float() * s[..., 0, :]).sum(dim=-2).to(out_dtype)
 
 
 def dequantize(w) -> torch.Tensor:
@@ -93,8 +94,10 @@ def dequantize(w) -> torch.Tensor:
     return (w["q"].float() * w["s"]).to(torch.bfloat16)
 
 
-def qeinsum(eq: str, x: torch.Tensor, w) -> torch.Tensor:
+def qeinsum(eq: str, x: torch.Tensor, w, out_dtype=None) -> torch.Tensor:
     """einsum(eq, x, w) for a plain, int8 or int4 w; the output channel is last.
+    The result is in ``out_dtype`` (default x's): f32 keeps a kernel's or the
+    scaled product's f32 values unrounded (a plain w's product is x's dtype).
 
     int4 weights go to ``q4einsum_lastdim`` (every call site contracts x's last
     axis). For int8, decode-shaped inputs (x [B, 1, K] with B <= 16, a 2-D
@@ -102,15 +105,16 @@ def qeinsum(eq: str, x: torch.Tensor, w) -> torch.Tensor:
     dequantizes the int8 operand to x's dtype at the product and applies the
     scale after it, as JAX's XLA path does.
     """
+    out_dtype = out_dtype or x.dtype
     if is_quantized4(w):
-        return q4einsum_lastdim(x, w)
+        return q4einsum_lastdim(x, w, out_dtype)
     if not is_quantized(w):
-        return torch.einsum(eq, x, w)
+        return torch.einsum(eq, x, w).to(out_dtype)
     q, s = w["q"], w["s"]
     if x.dim() == 3 and x.shape[1] == 1 and q.dim() == 2 and x.shape[0] <= MAX_ROWS:
-        return int8_matmul(x[:, 0].contiguous(), q, s)[:, None, :].to(x.dtype)
+        return int8_matmul(x[:, 0].contiguous(), q, s)[:, None, :].to(out_dtype)
     y = torch.einsum(eq, x, q.to(x.dtype))
-    return (y.float() * s.reshape(-1)).to(x.dtype)
+    return (y.float() * s.reshape(-1)).to(out_dtype)
 
 
 def quantize_transformer_params(params: dict, bits: int = 8) -> dict:

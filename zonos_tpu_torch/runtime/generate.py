@@ -9,6 +9,11 @@ buffer and the cache is the JAX package's, so cache shapes match.
 EOS semantics are the reference's: EOS in codebook 0 caps the remaining
 steps at n_q and drains an EOS/MASK staircase down the delayed codebooks,
 per sample.
+
+With a ``mesh`` (``parallel.mesh``) ``generate`` runs sharded, as JAX's
+runs on sharded params: each dp rank decodes its rows of the batch (its
+rows of each CFG half, drawn from their global rows' seeds), each tp rank
+its shards of the weights, and every rank returns the whole batch's codes.
 """
 
 from __future__ import annotations
@@ -18,6 +23,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from zonos_tpu_torch import resolve_device
 from zonos_tpu_torch.config import ZonosConfig
@@ -119,19 +125,21 @@ def _guide(logits: torch.Tensor, cfg_scale) -> torch.Tensor:
 
 
 def _decode_logits(params, statics: GenerateStatics, x_tokens, cache, write_index: int, pad_amount,
-                   cfg_scale, pos_offset=None, gap_len=None):
+                   cfg_scale, pos_offset=None, gap_len=None, mesh=None):
     """One backbone step with CFG batch doubling → guided logits [B, n_q, Vh].
 
     ``cfg_scale`` is a float or a [B] tensor (one per row). ``pos_offset`` and
     ``gap_len`` ([2B] int32) are a joined slot's RoPE offset and dead cache
-    span after the prefill (``runtime.continuous``)."""
+    span after the prefill (``runtime.continuous``). ``mesh``: the tp shards
+    of ``params`` (the heads are replicated, so every tp rank gets the whole
+    logits)."""
     cfg = statics.cfg
     x = embed_codes(params["embeddings"], x_tokens)  # [B, 1, D]
     x = torch.cat([x, x], dim=0)
     h, cache = backbone_forward(
         params["backbone"], cfg.backbone, x, cache,
         write_start=write_index, pad_amount=pad_amount, attend_len=statics.attend_len or statics.cache_len,
-        pos_offset=pos_offset, gap_len=gap_len, gap_start=statics.prefill_len,
+        pos_offset=pos_offset, gap_len=gap_len, gap_start=statics.prefill_len, mesh=mesh,
     )
     logits = apply_heads(params["heads"], h, cfg.codebook_dimension)[:, :, 0]
     return _guide(logits, cfg_scale), cache
@@ -152,11 +160,12 @@ def _write_frame(delayed: torch.Tensor, offset: int, next_token: torch.Tensor) -
     return delayed
 
 
-def row_generators(seed, batch_size: int, device) -> list:
+def row_generators(seed, batch_size: int, device, first_row: int = 0) -> list:
     """One torch.Generator per sample row, as JAX's ``seed_to_key`` resolves a seed.
 
     An int (``None``: a random one): row i draws from the stream of
-    (seed, i), so batched rows differ. A sequence of ``batch_size`` ints: row
+    (seed, first_row + i), so batched rows differ (``first_row``: the rows'
+    place in a batch that dp ranks split). A sequence of ``batch_size`` ints: row
     i draws from (seed[i], 0), the stream row 0 of a solo run at seed[i]
     draws, so a batched request reproduces its solo run. Either way a row's
     tokens depend on its own seed, row and frame, never on its batch-mates.
@@ -169,7 +178,7 @@ def row_generators(seed, batch_size: int, device) -> list:
             raise ValueError(f"{len(seeds)} seeds for a batch of {batch_size}: give one int or one seed per row")
         pairs = [(s, 0) for s in seeds]
     else:
-        pairs = [(int(seed), i) for i in range(batch_size)]
+        pairs = [(int(seed), first_row + i) for i in range(batch_size)]
     gens = []
     for pair in pairs:
         g = torch.Generator(device=device)
@@ -224,9 +233,12 @@ def prepare_request(
     device,
     prefill_bucket: int = PREFILL_BUCKET,
     audio_bucket: int = AUDIO_BUCKET,
+    first_row: int = 0,
 ) -> Request:
     """Bucket the prefill, the delayed-code buffer and the cache as the JAX
-    package does, and place the request's inputs on ``device``."""
+    package does, and place the request's inputs on ``device``. The rows
+    draw from their seeds as rows ``first_row`` on of a larger batch would
+    (``row_generators``)."""
     if isinstance(sampling_params, dict):
         sampling_params = SamplingParams(**sampling_params)
     sampling_params = sampling_params or SamplingParams(min_p=0.1)
@@ -252,7 +264,7 @@ def prepare_request(
         delayed_init=torch.as_tensor(apply_delay_pattern_np(codes, cfg.masked_token_id), device=device),
         cond_padded=pad_conditioning(prefix_conditioning, pad, dtype, device),
         pad_amount=torch.full((2 * batch_size,), pad, dtype=torch.int32, device=device),
-        generators=row_generators(seed, batch_size, device),
+        generators=row_generators(seed, batch_size, device, first_row),
         prefix_frames=lp,
         max_steps=max_new_tokens + n_q - 2,
     )
@@ -276,6 +288,7 @@ def generate(
     return_lengths: bool = False,
     device=None,
     stats: dict | None = None,
+    mesh=None,
 ):
     """Generate sanitized audio codes [B, n_q, L] (numpy int32).
 
@@ -286,37 +299,97 @@ def generate(
     to one of ``audio_bucket``. ``params`` must live on ``device`` (default:
     the card). A ``stats`` dict receives the prefill and decode-loop seconds
     (each ending in a device sync) and the number of decode steps.
+
+    With a ``mesh`` (``parallel.mesh.Mesh``; every rank calls this with the
+    same arguments) ``params`` are this rank's shards from ``shard_params``
+    on the mesh's device, ``cfg`` is the whole model's, and ``batch_size``
+    the whole batch, which dp splits. Every rank returns all B rows, equal
+    to the one-device call up to the order of the tp sums.
     """
+    first_row = 0
+    if mesh is None:
+        device = resolve_device(device)
+    else:
+        from zonos_tpu_torch.parallel.mesh import batch_rows, local_config
+
+        device, cfg = mesh.device, local_config(cfg, mesh.tp)
+        rows = batch_rows(mesh, batch_size)
+        seed = _common_seed(seed, mesh)
+        if isinstance(seed, (list, tuple, np.ndarray, torch.Tensor)):
+            seed = np.asarray(seed).reshape(-1)[rows]
+        else:
+            first_row = rows.start
+        prefix_conditioning = _cfg_rows(prefix_conditioning, rows, batch_size)
+        if audio_prefix_codes is not None:
+            audio_prefix_codes = audio_prefix_codes[rows]
+        batch_size = rows.stop - rows.start
+    req = prepare_request(cfg, prefix_conditioning, audio_prefix_codes, max_new_tokens, cfg_scale, batch_size,
+                          sampling_params, seed, dtype, forbid_eos, kv_int8, device, prefill_bucket, audio_bucket,
+                          first_row)
+    delayed_out, offsets = run_request(params, req, cfg_scale, stats, mesh)
+    out, lengths = postprocess_codes_batched(delayed_out, offsets, cfg)
+    if mesh is not None:
+        out, lengths = _all_rows(out, lengths, mesh)
+    if return_lengths:
+        return out, lengths
+    return out
+
+
+def run_request(params, req: Request, cfg_scale, stats: dict | None = None, mesh=None):
+    """Prefill and decode one prepared request → (delayed codes [B, n_q, S]
+    and each sample's end offset [B], on the host)."""
     from zonos_tpu_torch.runtime.streaming import build_prefill_fn, build_segment_fn
 
-    device = resolve_device(device)
-    req = prepare_request(cfg, prefix_conditioning, audio_prefix_codes, max_new_tokens, cfg_scale, batch_size,
-                          sampling_params, seed, dtype, forbid_eos, kv_int8, device, prefill_bucket, audio_bucket)
     statics = req.statics
-
+    device = req.cond_padded.device
     tic = time.perf_counter()
     carry = build_prefill_fn(statics)(params, req.cond_padded, req.delayed_init, req.prefix_frames + 1,
-                                      req.pad_amount, cfg_scale, req.generators)
+                                      req.pad_amount, cfg_scale, req.generators, mesh=mesh)
     if stats is not None:
         _sync(device)
         stats["prefill_s"] = time.perf_counter() - tic
         tic = time.perf_counter()
     final, _status, _codes = build_segment_fn(statics)(
-        params, carry, req.pad_amount, cfg_scale, max_steps=req.max_steps, segment_end=2**30,
+        params, carry, req.pad_amount, cfg_scale, max_steps=req.max_steps, segment_end=2**30, mesh=mesh,
     )
     delayed_out = final.delayed_codes.cpu().numpy()  # the device-to-host copy syncs
     stop_offset = final.stop_offset.cpu().numpy()
     if stats is not None:
         stats["decode_s"] = time.perf_counter() - tic
         stats["decode_steps"] = final.steps_done
-
     # A drained sample's stop_offset is its last written frame; a sample that
     # ran to exhaustion ends one past the loop's last frame.
-    offsets = np.where(stop_offset >= 0, stop_offset, final.offset)
-    out, lengths = postprocess_codes_batched(delayed_out, offsets, cfg)
-    if return_lengths:
-        return out, lengths
-    return out
+    return delayed_out, np.where(stop_offset >= 0, stop_offset, final.offset)
+
+
+def _common_seed(seed, mesh):
+    """The seed every rank uses: a None resolves to rank 0's random draw, so
+    that tp ranks draw the same tokens and dp ranks disjoint rows' streams."""
+    if seed is not None:
+        return seed
+    box = [int(np.random.randint(0, 2**31 - 1))]
+    dist.broadcast_object_list(box, src=0, group=mesh.host_group)
+    return box[0]
+
+
+def _cfg_rows(cond, rows: slice, batch_size: int):
+    """This dp rank's rows of CFG-doubled conditioning [2B, ...]: its rows of
+    the cond half and the same rows of the uncond half."""
+    halves = (cond[rows], cond[batch_size + rows.start:batch_size + rows.stop])
+    return torch.cat(halves) if isinstance(cond, torch.Tensor) else np.concatenate(halves)
+
+
+def _all_rows(out: np.ndarray, lengths: np.ndarray, mesh):
+    """Every dp rank's codes and lengths, in row order, on every rank: the
+    codes zero-padded to the longest (as one device pads its shorter rows).
+    The tp ranks of a dp index hold the same rows (``tp_agree`` held every
+    step); the first one's are taken."""
+    parts = [None] * (mesh.dp * mesh.tp)
+    dist.all_gather_object(parts, (out, lengths), group=mesh.host_group)
+    parts = parts[::mesh.tp]
+    lmax = max(o.shape[-1] for o, _ in parts)
+    out = np.concatenate([np.pad(o, ((0, 0), (0, 0), (0, lmax - o.shape[-1]))) for o, _ in parts])
+    return out, np.concatenate([n for _, n in parts])
 
 
 def postprocess_codes_batched(delayed_out: np.ndarray, offsets: np.ndarray, cfg: ZonosConfig):

@@ -28,6 +28,7 @@ from zonos_tpu_torch import resolve_device
 from zonos_tpu_torch.models.backbone import backbone_forward, create_cache
 from zonos_tpu_torch.ops.delay_pattern import revert_delay_pattern
 from zonos_tpu_torch.ops.sampling import SamplingParams, sample_from_logits, sample_from_logits_runtime
+from zonos_tpu_torch.parallel.comm import tp_agree
 from zonos_tpu_torch.runtime.generate import (
     AUDIO_BUCKET,
     MAX_REP_WINDOW,
@@ -65,7 +66,7 @@ def build_prefill_fn(statics: GenerateStatics):
     n_q = cfg.codebook_dimension
 
     def prefill_fn(params, cond_emb, delayed_init, prefix_frames: int, pad_amount, cfg_scale, generators,
-                   rt_params=None):
+                   rt_params=None, mesh=None):
         b = statics.batch_size
         n_prefix = statics.prefill_len - cond_emb.shape[1]
         prefix_emb = embed_codes(params["embeddings"], delayed_init[:, :, :n_prefix])
@@ -76,7 +77,7 @@ def build_prefill_fn(statics: GenerateStatics):
                              kv_int8=statics.kv_int8, device=cond_emb.device)
         h, cache = backbone_forward(
             params["backbone"], cfg.backbone, x, cache,
-            write_start=0, pad_amount=pad_amount, attend_len=statics.prefill_len,
+            write_start=0, pad_amount=pad_amount, attend_len=statics.prefill_len, mesh=mesh,
         )
         logits0 = _guide(apply_heads(params["heads"], h[:, -1:, :], n_q)[:, :, 0], cfg_scale)
         if statics.runtime_sampling:
@@ -84,6 +85,7 @@ def build_prefill_fn(statics: GenerateStatics):
                                                     generators=generators)
         else:
             next_token = sample_from_logits(logits0, statics.sampling, generators=generators)
+        tp_agree(next_token, mesh)
         delayed = _write_frame(delayed_init.clone(), prefix_frames, next_token)
         dev = cond_emb.device
         return DecodeCarry(
@@ -146,11 +148,12 @@ def build_segment_fn(statics: GenerateStatics):
     use_rep = window > 0 and (statics.runtime_sampling or statics.sampling.repetition_penalty != 1.0)
 
     def segment_fn(params, c: DecodeCarry, pad_amount, cfg_scale, max_steps: int, segment_end: int,
-                   pos_offset=None, gap_len=None, rt_params=None, early_exit: bool = True):
+                   pos_offset=None, gap_len=None, rt_params=None, early_exit: bool = True, mesh=None):
         """``early_exit`` stops as soon as every sample has drained, which reads
         the device once per step; without it the step bounds alone decide,
         and steps after a sample's drain leave its codes, stop offset and
-        lengths as they were."""
+        lengths as they were. ``mesh``: the tp shards of ``params``; the tp
+        ranks' tokens are checked equal every step (``tp_agree``)."""
         dev = c.delayed_codes.device
         bias = _make_bias(statics, dev)
         cb = torch.arange(n_q, device=dev)[None, :]
@@ -159,7 +162,7 @@ def build_segment_fn(statics: GenerateStatics):
             input_frame = c.delayed_codes[:, :, c.offset - 1:c.offset]
             logits, c.cache = _decode_logits(
                 params, statics, input_frame, c.cache, statics.prefill_len + c.steps_done, pad_amount, cfg_scale,
-                pos_offset=pos_offset, gap_len=gap_len,
+                pos_offset=pos_offset, gap_len=gap_len, mesh=mesh,
             )
             logits = logits + bias
             ctx = valid = None
@@ -175,7 +178,7 @@ def build_segment_fn(statics: GenerateStatics):
                     logits, statics.sampling, generators=c.generators,
                     generated_tokens=ctx, generated_valid_len=valid,
                 )
-
+            tp_agree(next_token, mesh)
             _advance(c, next_token, cfg, cb)
             c.steps_done += 1
 

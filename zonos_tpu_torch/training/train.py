@@ -15,6 +15,13 @@ The optimizer is optax's ``clip_by_global_norm(1.0)`` then ``adamw`` on a
 max/‖g‖ only when ‖g‖ ≥ max, eps sits outside the root, the decay is
 ``lr·wd·p`` on every leaf, and the schedule is read at the update count
 before the increment (the first update has lr 0).
+
+``make_sharded_train_step`` runs the same step over a (dp, tp) mesh
+(``parallel.mesh``): each rank holds its tp shards and its dp rows
+(``shard_batch``); the NLL and weight sums and the gradients are summed over
+dp before the one division, and the clip's norm counts each sharded leaf's
+squares summed over tp and each replicated leaf once, so the step computes
+the one-device step's function.
 """
 
 from __future__ import annotations
@@ -26,6 +33,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from zonos_tpu_torch.config import ZonosConfig
 from zonos_tpu_torch.models.backbone import backbone_forward
@@ -92,9 +100,12 @@ class Optimizer:
         return OptState(count=0, mu=[torch.zeros_like(p) for p in leaves], nu=[torch.zeros_like(p) for p in leaves])
 
     @torch.no_grad()
-    def update(self, grads: list, state: OptState, leaves: list) -> None:
-        """Apply one update to ``leaves`` in place and advance ``state``."""
-        g_norm = torch.sqrt(sum((g.float() ** 2).sum() for g in grads))
+    def update(self, grads: list, state: OptState, leaves: list, g_norm: torch.Tensor | None = None) -> None:
+        """Apply one update to ``leaves`` in place and advance ``state``.
+        ``g_norm``: the global gradient norm the clip reads, where the grads
+        are shards of it (default: their own norm)."""
+        if g_norm is None:
+            g_norm = torch.sqrt(sum((g.float() ** 2).sum() for g in grads))
         clip = torch.where(g_norm < MAX_NORM, torch.ones_like(g_norm), MAX_NORM / g_norm)
         lr = self.schedule(state.count)
         count = state.count + 1
@@ -137,16 +148,18 @@ def _tensor(a, device, dtype=None) -> torch.Tensor:
     return t.to(device=device, dtype=dtype) if dtype is not None else t.to(device)
 
 
-def forward_logits(params: dict, cfg: ZonosConfig, cond_emb, codes, remat: bool = False) -> torch.Tensor:
+def forward_logits(params: dict, cfg: ZonosConfig, cond_emb, codes, remat: bool = False,
+                   mesh=None) -> torch.Tensor:
     """Cache-free forward of [cond_emb; embed(codes)] → f32 logits [B, n_q, S, Vh]
-    at the code positions (cond_emb [B, Lc, D], codes [B, n_q, S])."""
+    at the code positions (cond_emb [B, Lc, D], codes [B, n_q, S]). ``mesh``:
+    params and cfg are a tp rank's (``shard_params``, ``local_config``)."""
     emb = params["embeddings"]
     x_codes = embed_codes(emb, _tensor(codes, emb.device))
     cond = _tensor(cond_emb, emb.device, x_codes.dtype)
     x = torch.cat([cond, x_codes], dim=1)
     pad = torch.zeros((x.shape[0],), dtype=torch.int32, device=x.device)
     h, _ = backbone_forward(params["backbone"], cfg.backbone, x, None, write_start=0, pad_amount=pad,
-                            attend_len=x.shape[1], remat=remat)
+                            attend_len=x.shape[1], remat=remat, mesh=mesh)
     return apply_heads(params["heads"], h[:, cond.shape[1]:], cfg.codebook_dimension)
 
 
@@ -164,14 +177,14 @@ def count_targets(delayed_codes, loss_mask, vh: int) -> int:
 
 
 def loss_terms(params: dict, cfg: ZonosConfig, cond_emb, delayed_codes, loss_mask,
-               remat: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+               remat: bool = False, mesh=None) -> tuple[torch.Tensor, torch.Tensor]:
     """(weighted-NLL sum, weight sum) over [B, n_q, S-1] next-frame targets.
 
     Kept un-normalized so gradient accumulation sums both over microbatches
     and divides once (``build_train_step``)."""
     dev = params["embeddings"].device
     delayed = _tensor(delayed_codes, dev).long()
-    logits = forward_logits(params, cfg, cond_emb, delayed[..., :-1], remat=remat)
+    logits = forward_logits(params, cfg, cond_emb, delayed[..., :-1], remat=remat, mesh=mesh)
     targets = delayed[..., 1:]  # predict frame t+1 from <= t
     vh = logits.shape[-1]
     logp = torch.log_softmax(logits, dim=-1)
@@ -199,25 +212,33 @@ def value_and_grad(loss_of, leaves: list, accum_steps: int, cond_emb, delayed_co
     axis 0; their NLL and weight sums and their gradients are summed and
     divided once, as JAX's scan does (grad(Σ nll·w / W) = Σ grad(nll·w) / W:
     w does not depend on the params)."""
-    with _requires_grad(leaves):
-        if accum_steps == 1:
+    if accum_steps == 1:
+        with _requires_grad(leaves):
             nll, w = loss_of(cond_emb, delayed_codes, loss_mask)
             loss = nll / torch.clamp(w, min=1.0)
             return loss.detach(), _grads(loss, leaves)
-        b = delayed_codes.shape[0]
-        if b % accum_steps:
-            raise ValueError(f"a batch of {b} does not split into {accum_steps} microbatches")
-        m = b // accum_steps
-        nll_sum = w_sum = 0.0
-        acc = None
+    nll_sum, w_sum, acc = grad_sums(loss_of, leaves, accum_steps, cond_emb, delayed_codes, loss_mask)
+    denom = torch.clamp(w_sum, min=1.0)
+    return nll_sum / denom, [g / denom for g in acc]
+
+
+def grad_sums(loss_of, leaves: list, accum_steps: int, cond_emb, delayed_codes, loss_mask):
+    """(NLL sum, weight sum, gradients of the NLL sum) over ``accum_steps``
+    microbatches along axis 0, not yet normalized."""
+    b = delayed_codes.shape[0]
+    if b % accum_steps:
+        raise ValueError(f"a batch of {b} does not split into {accum_steps} microbatches")
+    m = b // accum_steps
+    nll_sum = w_sum = 0.0
+    acc = None
+    with _requires_grad(leaves):
         for i in range(accum_steps):
             mb = (a[i * m:(i + 1) * m] for a in (cond_emb, delayed_codes, loss_mask))
             nll, w = loss_of(*mb)
             g = _grads(nll, leaves)
             acc = g if acc is None else [a + b_ for a, b_ in zip(acc, g)]
             nll_sum, w_sum = nll_sum + nll.detach(), w_sum + w.detach()
-        denom = torch.clamp(w_sum, min=1.0)
-        return nll_sum / denom, [g / denom for g in acc]
+    return nll_sum, w_sum, acc
 
 
 def build_train_step(cfg: ZonosConfig, optimizer: Optimizer, accum_steps: int = 1, remat: bool = False):
@@ -238,3 +259,71 @@ def build_train_step(cfg: ZonosConfig, optimizer: Optimizer, accum_steps: int = 
         return TrainState(state.params, state.opt_state, state.step + 1), loss
 
     return train_step
+
+
+# ---------------------------------------------------------------------------
+# Sharded step: dp × tp over a parallel.mesh.Mesh
+# ---------------------------------------------------------------------------
+
+def sharded_value_and_grad(mesh, loss_of, leaves: list, accum_steps: int, cond_emb, delayed_codes, loss_mask):
+    """(loss, grads of this rank's ``leaves``) of the token-weighted mean loss
+    over the whole batch: the NLL and weight sums and the gradients summed
+    over dp, then divided once by the global weight sum."""
+    nll, w, grads = grad_sums(loss_of, leaves, accum_steps, cond_emb, delayed_codes, loss_mask)
+    if mesh.dp > 1:
+        sums = torch.stack([nll, w])
+        for t in (sums, *grads):
+            dist.all_reduce(t, group=mesh.dp_group)
+        nll, w = sums
+    denom = torch.clamp(w, min=1.0)
+    return nll / denom, [g / denom for g in grads]
+
+
+def sharded_grad_norm(mesh, grads: list, sharded: list) -> torch.Tensor:
+    """The whole model's gradient norm: each tp-sharded leaf's squares summed
+    over tp, each replicated leaf counted once."""
+    sq = [(g.float() ** 2).sum() for g in grads]
+    zero = torch.zeros((), dtype=torch.float32, device=grads[0].device)
+    part = sum((q for q, s in zip(sq, sharded) if s), zero)
+    if mesh.tp > 1:
+        dist.all_reduce(part, group=mesh.tp_group)
+    return torch.sqrt(part + sum((q for q, s in zip(sq, sharded) if not s), zero))
+
+
+def make_sharded_train_step(mesh, cfg: ZonosConfig, optimizer: Optimizer, params: dict, accum_steps: int = 1,
+                            remat: bool = False):
+    """Shard ``params`` (the whole model's, on every rank) over the mesh and
+    build the step. Returns (state, step): ``state.params`` are this rank's
+    shards, copies that share nothing with ``params``; ``step(state,
+    cond_emb, delayed_codes, loss_mask)`` takes this rank's rows
+    (``shard_batch``) and returns (state, the global loss), the shards and
+    moments updated in place."""
+    import copy
+
+    from zonos_tpu_torch.parallel.mesh import local_config, shard_axes, shard_params
+
+    axes = shard_axes(cfg, params)
+    local = copy.deepcopy(shard_params(mesh, cfg, params))  # replicated leaves are params' own tensors
+    sharded = [axes[p] is not None for p, t in named_leaves(local) if t.is_floating_point()]
+    lcfg = local_config(cfg, mesh.tp)
+    state = init_train_state(local, optimizer)
+
+    def step(state: TrainState, cond_emb, delayed_codes, loss_mask):
+        leaves = trainable_leaves(state.params)
+        loss, grads = sharded_value_and_grad(
+            mesh, lambda c, d, m: loss_terms(state.params, lcfg, c, d, m, remat=remat, mesh=mesh),
+            leaves, accum_steps, cond_emb, delayed_codes, loss_mask,
+        )
+        optimizer.update(grads, state.opt_state, leaves, g_norm=sharded_grad_norm(mesh, grads, sharded))
+        return TrainState(state.params, state.opt_state, state.step + 1), loss
+
+    return state, step
+
+
+def shard_batch(mesh, *arrays):
+    """This dp rank's rows (``parallel.mesh.batch_rows``) of each batch array,
+    as tensors on the mesh's device."""
+    from zonos_tpu_torch.parallel.mesh import batch_rows
+
+    out = tuple(_tensor(a[batch_rows(mesh, len(a))], mesh.device) for a in arrays)
+    return out if len(out) > 1 else out[0]
