@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port (zonos_tpu_torch) on one NVIDIA card.
+"""Drive the PyTorch/CUDA port (zonos_tpu_torch) on one NVIDIA card, and
+its sharded paths on four.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py             # one card: phases 0-12
+    python3 chip_smoke.py --phase13   # four cards: phase 13 only
 
 Phases; any failure exits non-zero:
   0. the card: name and power limit (nvidia-smi), TF32 off for every f32 compare;
@@ -14,7 +16,8 @@ Phases; any failure exits non-zero:
      writing 256 MB), the least time the card could take, and a PyTorch
      library call of the same function as a yardstick; every kernel but K5/K6
      and its yardstick are timed again after a flush that reads the same
-     256 MB (K5), which leaves clean lines in the L2; K3, K3s and K4 give
+     256 MB (K5), which leaves clean lines in the L2; each also at one tp =
+     2 rank's and one tp = 4 rank's shard shapes; K3, K3s and K4 give
      bit-equal outputs on two calls; K1 and K3 at the continuous engine's 16
      rows and K2 over its cache (16 rows of 3328 slots, a dead span of its
      own length per row, read through a 1024-slot attend view); then K1 and
@@ -116,7 +119,27 @@ Phases; any failure exits non-zero:
      ranks at 2 layers of full width, f32 with TF32 off, transformer and
      hybrid (loss within 1e-4 relative of the one-device loss, each leaf's
      gradient at cosine >= 0.9999, 3 steps at warmup 1 finite and falling);
-     ms per frame against one device, and seconds per step.
+     ms per frame against one device, and seconds per step;
+ 13. (not run by default: ``--phase13`` on a machine with four cards, which
+     raises with fewer) the sharded paths over nccl, one rank per card: the
+     one-device runs on card 0 first (greedy B 1 on the flagship int8, int4
+     and the hybrid; greedy and min-p B 4 on int8; phase 11's 4 x 256-frame
+     batch), then 4 ranks spawned over nccl, each card's name and power limit
+     printed: tp 4 on the flagship int8 with int8 KV (86 frames greedy, then
+     min-p 0.1: first-step logits correlation >= 0.999, teacher-forced
+     agreement >= 90%, the 4 ranks' codes identical, K1/K2/K3 launches and
+     all-reduces per step exact: 49 of each K1 and collective), on the
+     flagship int4 (K4 at the tp 4 shapes) and on the full-depth hybrid int8
+     (agreement >= 90%, or within 2 points of the one-device floor where that
+     is lower: the same model's B 2 run of one row against its B 1 run);
+     dp 4 (B 4, a seed per row: each rank's row bit-equal to a one-device B 1
+     run of it); dp 2 x tp 2 at B 4 (agreement >= 90% against the one-device
+     B 4 run, the tp ranks of each dp index identical); the sharded train
+     step at full depth, f32 with TF32 off, on dp 2 x tp 2 and dp 1 x tp 4
+     (first loss within 1e-5 relative of one device's, gradient cosine >=
+     0.99999, 3 steps falling; seconds per step, targets per second, peak GB
+     per card); ms per frame against one device; last, nccl's device time
+     per step from a profile of rank 0.
 With ``--parts``, only the device kernels of one K3, K3s or K4 call at the
 main path's shapes, each with its device time under torch.profiler. With
 ``--pair-streams``, only two flagship requests alone and at once, on the
@@ -125,7 +148,8 @@ Prints one line per kernel check, a ``{"kernels": [...]}`` line (``launches``
 from phase 5, or phase 6 for K4, and ``launches_by_path`` for phases 5, 6, 8,
 10 ("server") and 11 ("lora_int8": the merged model's generate,
 "speculative") and 12 ("tp2", "tp2_hybrid", "dp2": one rank's counts)),
-the card's name and power limit, and last
+a line naming ``--phase13`` and the cards this run sees, the card's name
+and power limit, and last
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -210,6 +234,14 @@ HYBRID_F = 4096
 # 4096 / 2 (the Mamba layers' MLP); K2 over 2 KV heads and 8 query heads.
 TP2_K1 = ((2048, 1536), (1024, 2048), (2048, 4256))
 TP2_F = 2048
+# One rank's shards under tp = 4 (phase 13): the flagship's in_proj (768 =
+# 4 q + 1 k + 1 v heads of 128) and out_proj (rows 512), the Mamba in_proj
+# (8512 / 4) and out_proj (rows 4096 / 4); K3 at F 8192 / 4 (TP2_F's shape)
+# and 4096 / 4 (the Mamba layers' MLP); K2 over 1 KV head and 4 query heads;
+# K4 at the flagship's in_proj, out_proj (4 groups of 128), fc1 and fc2.
+TP4_K1 = ((2048, 768), (512, 2048), (2048, 2128), (1024, 2048))
+TP4_F = 1024
+TP4_K4 = ((2048, 768), (512, 2048), (2048, 4096), (2048, 2048))
 
 
 def _k1_case(M, gen, flush, read_flush, b, k, n, pad_rows16, quantize_int8, tag=""):
@@ -259,6 +291,8 @@ def _k1_cases(gen, flush, read_flush):
         rows.append(_k1_case(M, gen, flush, read_flush, 2, k, n, pad_rows16, quantize_int8, "hybrid "))
     for k, n in TP2_K1:
         rows.append(_k1_case(M, gen, flush, read_flush, 2, k, n, pad_rows16, quantize_int8, "tp2 "))
+    for k, n in TP4_K1:
+        rows.append(_k1_case(M, gen, flush, read_flush, 2, k, n, pad_rows16, quantize_int8, "tp4 "))
     # The scalar variant (a row stride that is not a multiple of 16 bytes, which
     # no main-path weight has): the heads unpadded, checked only.
     x = torch.randn((3, 2048), generator=gen, device="cuda").to(torch.bfloat16)
@@ -287,12 +321,14 @@ def _k2_cases(gen, flush, read_flush):
     # 256-slot prefill with its own length per row, read through the
     # 1024-slot view of an attend rung (timed)
     engine_gap = [int(v) for v in np.random.default_rng(7).integers(0, 700, 16)]
-    # (and a tp = 2 rank's 2 KV heads and 8 query heads over the main path's cache)
+    # (and a tp = 2 rank's 2 KV heads and 8 query heads, and a tp = 4 rank's
+    # 1 KV head and 4 query heads, over the main path's cache)
     for case, b, s, view, wi, gap_start, gap, hkv, hq in (
             ("mid-cache", 2, 1152, None, 700, 0, None, 4, 16), ("gap", 2, 1152, None, 900, 128, [40, 0], 4, 16),
             ("long-cache", 2, 8192, None, 8000, 0, None, 4, 16),
             ("engine B=16 S=3328 attend 1024", 16, 3328, 1024, 1000, 256, engine_gap, 4, 16),
-            ("tp2 Hkv 2 Hq 8", 2, 1152, None, 700, 0, None, 2, 8)):
+            ("tp2 Hkv 2 Hq 8", 2, 1152, None, 700, 0, None, 2, 8),
+            ("tp4 Hkv 1 Hq 4", 2, 1152, None, 700, 0, None, 1, 4)):
         q = torch.randn((b, 1, hq, dh), generator=gen, device="cuda").to(torch.bfloat16)
         kq, ks = _kv_quantize(torch.randn((b, s, hkv, dh), generator=gen, device="cuda") * 2.0)
         vq, vs = _kv_quantize(torch.randn((b, s, hkv, dh), generator=gen, device="cuda"))
@@ -359,9 +395,11 @@ def _k3_cases(gen, flush, read_flush):
     rows = []
     # the flagship MLP (K3 and K3s), the hybrid's Mamba-layer MLP (K3; a tp = 2
     # rank's flagship MLP too), the flagship MLP at the continuous engine's 16
-    # rows (K3), and a tp = 2 rank's Mamba-layer MLP
+    # rows (K3), a tp = 2 rank's Mamba-layer MLP (a tp = 4 rank's flagship MLP
+    # too), and a tp = 4 rank's Mamba-layer MLP
     for b, d, f, names in ((2, 2048, 8192, ("K3", "K3s")), (2, 2048, HYBRID_F, ("K3 hybrid",)),
-                           (16, 2048, 8192, ("K3 B16",)), (2, 2048, TP2_F, ("K3 tp2",))):
+                           (16, 2048, 8192, ("K3 B16",)), (2, 2048, TP2_F, ("K3 tp2",)),
+                           (2, 2048, TP4_F, ("K3 tp4",))):
         rows += _k3_shape(M, quantize_int8, gen, flush, read_flush, b, d, f, names)
     return rows
 
@@ -484,9 +522,11 @@ def _k4_cases(gen, flush, read_flush):
     # in_proj, out_proj, fc1 and fc2 of a flagship layer at the decode batch,
     # and in_proj at the largest batch K4 takes
     # then the hybrid's Mamba in_proj, out_proj (and fc2) and its Mamba-layer fc1
-    shapes = ((2, 2048, 3072), (2, 2048, 2048), (2, 2048, 16384), (2, 8192, 2048), (16, 2048, 3072),
-              *((2, k, n) for k, n in HYBRID_K4))
-    for i, (b, k, n) in enumerate(shapes):
+    # and a tp = 4 rank's shards of the flagship layer
+    shapes = (("", 2, 2048, 3072), ("", 2, 2048, 2048), ("", 2, 2048, 16384), ("", 2, 8192, 2048),
+              ("", 16, 2048, 3072), *(("hybrid ", 2, k, n) for k, n in HYBRID_K4),
+              *(("tp4 ", 2, k, n) for k, n in TP4_K4))
+    for tag, b, k, n in shapes:
         x = torch.randn((b, k), generator=gen, device="cuda").to(torch.bfloat16)
         w = quantize_int4(torch.randn((k, n), generator=gen, device="cuda") / k ** 0.5)
         y = M.int4_matmul(x, w["q4"], w["s4"])
@@ -506,7 +546,7 @@ def _k4_cases(gen, flush, read_flush):
         kernel = lambda: M.int4_matmul(x, w["q4"], w["s4"])  # noqa: E731
         library = lambda: torch.matmul(x, w_bf16)  # noqa: E731
         row = {
-            "case": f"{'hybrid ' if i >= 5 else ''}B={b} {k}->{n}", "max_abs_err": err.max().item(),
+            "case": f"{tag}B={b} {k}->{n}", "max_abs_err": err.max().item(),
             "cluster": M.int4_matmul_plan(b, k, n, 128, sms=M._sm_count(x.device)).cluster,
             "ms": _time_ms(kernel, flush),
             "plain_ms": _time_ms(lambda: M.int4_matmul_plain(x, w["q4"], w["s4"]), flush),
@@ -1917,7 +1957,8 @@ def _kernel_wrappers():
 
 
 def _cos(a: torch.Tensor, b: torch.Tensor) -> float:
-    a, b = a.double().cpu().ravel(), b.double().cpu().ravel()
+    """The cosine of two tensors, in float64 on ``a``'s device."""
+    a, b = a.double().ravel(), b.to(a.device).double().ravel()
     return float(a @ b / (a.norm() * b.norm()).clamp(min=1e-300))
 
 
@@ -2268,11 +2309,12 @@ def _decode_job(params, cfg, cond, frames, sampling, device, mesh=None, batch_si
 
 
 def _forced_agreement(params, cfg, cond, codes, device, mesh=None) -> dict:
-    """Teacher forcing of greedy codes [1, n_q, T] from another run: this
-    model's greedy pick at each step of generate's loop (after the bias and
-    the repetition penalty) while the step's input frame holds given codes
-    only, that input taken from ``codes``; the share of (step, codebook)
-    picks equal to the given token."""
+    """Teacher forcing of greedy codes [B, n_q, T] from another run (cond
+    [2B, ...]: the same rows of both CFG halves): this model's greedy pick
+    at each step of generate's loop (after the bias and the repetition
+    penalty) while the step's input frame holds given codes only, that input
+    taken from ``codes``; the share of (row, step, codebook) picks equal to
+    the given token."""
     from zonos_tpu_torch.ops.delay_pattern import apply_delay_pattern_np
     from zonos_tpu_torch.ops.sampling import SamplingParams, sample_from_logits
     from zonos_tpu_torch.parallel.mesh import local_config
@@ -2280,31 +2322,32 @@ def _forced_agreement(params, cfg, cond, codes, device, mesh=None) -> dict:
     from zonos_tpu_torch.runtime.streaming import _make_bias, build_prefill_fn
 
     greedy = SamplingParams(temperature=0.0)
-    n_q, t = codes.shape[1:]
+    b, n_q, t = codes.shape
     lcfg = cfg if mesh is None else local_config(cfg, mesh.tp)
-    req = prepare_request(lcfg, cond, None, t, 2.0, 1, greedy, 0, torch.bfloat16, True, True, device)
+    req = prepare_request(lcfg, cond, None, t, 2.0, b, greedy, 0, torch.bfloat16, True, True, device)
     st = req.statics
     c = build_prefill_fn(st)(params, req.cond_padded, req.delayed_init, 1, req.pad_amount, 2.0, req.generators,
                              mesh=mesh)
     forced = torch.as_tensor(apply_delay_pattern_np(codes.astype(np.int32), cfg.masked_token_id), device=device)
     d = c.delayed_codes
-    picks = [d[0, :, 1].cpu()]  # the prefill's pick: delayed index 1
+    picks = [d[:, :, 1].cpu()]  # the prefill's pick: delayed index 1
     d[:, :, 1] = forced[:, :, 1]
     bias = _make_bias(st, device)
     for o in range(2, t + 2):  # the last step whose input frame is all given codes (or leading MASKs)
         logits, c.cache = _decode_logits(params, st, d[:, :, o - 1:o], c.cache, st.prefill_len + o - 2,
                                          req.pad_amount, 2.0, mesh=mesh)
         ctx, valid = _context_slice(d, o, st.sampling.repetition_penalty_window)
-        picks.append(sample_from_logits(logits + bias, greedy, generated_tokens=ctx, generated_valid_len=valid)[0]
+        picks.append(sample_from_logits(logits + bias, greedy, generated_tokens=ctx, generated_valid_len=valid)
                      .cpu())
         d[:, :, o] = forced[:, :, o]
     agree = compared = 0
     for j, pick in enumerate(picks):  # pick j chose delayed index j + 1: codebook k's frame j - k
-        for k in range(n_q):
-            f = j - k
-            if 0 <= f < t and codes[0, k, f] < 1024:
-                compared += 1
-                agree += int(pick[k]) == int(codes[0, k, f])
+        for r in range(b):
+            for k in range(n_q):
+                f = j - k
+                if 0 <= f < t and codes[r, k, f] < 1024:
+                    compared += 1
+                    agree += int(pick[r, k]) == int(codes[r, k, f])
     return {"compared": compared, "agree": agree, "share": agree / max(compared, 1)}
 
 
@@ -2541,6 +2584,503 @@ def _phase_parallel_main() -> int:
 
 
 # ---------------------------------------------------------------------------
+# Phase 13: the sharded paths over nccl, one rank per card (four cards)
+# ---------------------------------------------------------------------------
+
+MC_WORLD = 4
+MC_FRAMES, MC_PROFILE_FRAMES = 86, 16
+MC_SEEDS = [11, 12, 13, 14]  # dp 4: one seed per row
+MC_TRAIN_FRAMES = 256  # finetune_lora's default batch: 4 x 256 frames, samples of 192-256
+
+
+def _mc_configs(device="cuda") -> dict:
+    """Phase 13's models at full width and depth: the flagship (int8 and
+    int4) and Zonos-v0.1-hybrid. On the CPU (a rehearsal) tiny configs with
+    8 query and 4 KV heads, so that attention splits over tp 4."""
+    from zonos_tpu_torch import config as C
+
+    if torch.device(device).type == "cpu":
+        def heads(cfg):
+            attn = dataclasses.replace(cfg.backbone.attn_cfg, num_heads=8, num_heads_kv=4)
+            return dataclasses.replace(cfg, backbone=dataclasses.replace(cfg.backbone, attn_cfg=attn))
+
+        return {"int8": heads(C.tiny_transformer_config()), "int4": heads(C.tiny_transformer_config(d_model=512)),
+                "hybrid": heads(C.tiny_hybrid_config())}
+    t = C.zonos_v01_transformer_config()
+    return {"int8": t, "int4": t, "hybrid": C.zonos_v01_hybrid_config()}
+
+
+def _mc_model(name, cfg, device):
+    """The seeded model of ``name`` (bf16 from seed 0, quantized), which every
+    rank builds for itself on its card."""
+    from zonos_tpu_torch.models.zonos import Zonos
+
+    return Zonos.from_config(cfg, seed=0, dtype=torch.bfloat16, device=device).quantize(
+        bits=4 if name == "int4" else 8).params
+
+
+def _mc_train_batch(cfg, device):
+    """Phase 11's full-step batch: 4 synthetic samples of 192-256 frames
+    through ``build_batch`` (the model's conditioners, text through the
+    native G2P) at 256 frames; on the CPU 4 samples of 18-24 at 24."""
+    from zonos_tpu_torch.models.zonos import Zonos
+    from zonos_tpu_torch.training.data import build_batch, synthetic_dataset
+
+    frames = MC_TRAIN_FRAMES if torch.device(device).type == "cuda" else 24
+    model = Zonos.from_config(cfg, seed=1, dtype=torch.float32, device=device)
+    with torch.no_grad():
+        return build_batch(model, synthetic_dataset(4, n_q=cfg.codebook_dimension, min_frames=frames * 3 // 4,
+                                                    max_frames=frames, seed=3), frames=frames)
+
+
+class _CollectiveCount:
+    """Counts ``torch.distributed.all_reduce`` calls (every collective the
+    sharded forward and train step issue: ``parallel.comm`` and
+    ``training.train`` call it through the module)."""
+
+    def __init__(self):
+        import torch.distributed as dist
+
+        self.n, inner = 0, dist.all_reduce
+
+        def counted(*a, **k):
+            self.n += 1
+            return inner(*a, **k)
+
+        dist.all_reduce = counted
+
+
+def _mc_job(counter, params, cfg, cond, sampling, device, mesh, batch_size=1, seed=0):
+    """A warm-up generate, then ``_decode_job`` with the collectives counted;
+    also this rank's own rows before the dp gather (``_all_rows``' input)."""
+    from zonos_tpu_torch.runtime import generate as G
+
+    _decode_job(params, cfg, cond, WARM_FRAMES, sampling, device, mesh=mesh, batch_size=batch_size, seed=seed)
+    own, gather = [], G._all_rows
+    G._all_rows = lambda out, lengths, m: (own.append(out), gather(out, lengths, m))[1]
+    counter.n = 0
+    try:
+        codes, logits, stats, counts = _decode_job(params, cfg, cond, MC_FRAMES, sampling, device, mesh=mesh,
+                                                   batch_size=batch_size, seed=seed)
+    finally:
+        G._all_rows = gather
+    return {"codes": codes, "own_rows": own[0], "logits": logits, "stats": stats,
+            "counts": counts, "collectives": counter.n,
+            "ms_per_frame": stats["decode_s"] * 1e3 / stats["decode_steps"]}
+
+
+def _mc_infer(counter, tp, dp, dptp, refs):
+    """The inference cases of a phase 13 rank: tp 4 on int8 (greedy with
+    teacher forcing and first logits, then min-p), int4 and the hybrid
+    (greedy with teacher forcing); dp 4 (min-p, a seed per row) with the
+    one-device B 1 run of this rank's row; dp 2 x tp 2 at B 4 (greedy with
+    teacher forcing of this dp index's rows of the one-device B 4 run)."""
+    from zonos_tpu_torch.ops.sampling import SamplingParams
+    from zonos_tpu_torch.parallel.mesh import batch_rows, shard_params
+    from zonos_tpu_torch.runtime.generate import _cfg_rows
+
+    dev = tp.device
+    greedy, min_p = SamplingParams(temperature=0.0), SamplingParams(min_p=0.1)
+    out, kept = {}, None
+    for name, cfg in _mc_configs(dev).items():
+        full = _mc_model(name, cfg, dev)
+        d = cfg.backbone.d_model
+        cond = _par_cond(d)
+        if name == "int8":
+            cond4 = _par_cond(d, b=4, seed=3)
+            res = _mc_job(counter, full, cfg, cond4, min_p, dev, mesh=dp, batch_size=4, seed=MC_SEEDS)
+            rows = batch_rows(dp, 4)
+            ref = _decode_job(full, cfg, _cfg_rows(cond4, rows, 4), MC_FRAMES, min_p, dev,
+                              seed=MC_SEEDS[rows.start:rows.stop])
+            res.update(rows=(rows.start, rows.stop), ref=ref[0], ref_ms_per_frame=ref[2]["decode_s"] * 1e3
+                       / ref[2]["decode_steps"])
+            out["dp4"] = res
+            local = shard_params(dptp, cfg, full)
+            res = _mc_job(counter, local, cfg, cond4, greedy, dev, mesh=dptp, batch_size=4)
+            rows = batch_rows(dptp, 4)
+            res["forced"] = _forced_agreement(local, cfg, _cfg_rows(cond4, rows, 4), refs["dp2xtp2"]["codes"][rows],
+                                              dev, mesh=dptp)
+            res["rows"] = (rows.start, rows.stop)
+            out["dp2xtp2"] = res
+            del local
+        local = shard_params(tp, cfg, full)
+        del full
+        res = _mc_job(counter, local, cfg, cond, greedy, dev, mesh=tp)
+        res["corr"] = _corr(res.pop("logits"), refs[name]["logits"])
+        res["forced"] = _forced_agreement(local, cfg, cond, refs[name]["codes"], dev, mesh=tp)
+        if name == "int8":
+            res["min_p"] = _mc_job(counter, local, cfg, cond, min_p, dev, mesh=tp, seed=7)
+            kept = (local, cfg, cond)  # profiled last
+        out[f"tp4_{name}"] = res
+        del local
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        if tp.rank == 0:
+            print(f"phase13 rank 0: {name} done", flush=True)
+    return out, kept
+
+
+def _mc_train(meshes, batch, steps=3):
+    """The sharded train step at full depth, f32 with TF32 off, on each mesh
+    of ``meshes`` ({name: mesh}): the first loss and this rank's gradients
+    against one device's ``value_and_grad`` on the same weights and batch
+    (computed once, on this rank's card), then ``steps`` AdamW steps (warmup
+    1) with seconds per step, targets per second and the card's peak GB."""
+    from zonos_tpu_torch.models.zonos import Zonos
+    from zonos_tpu_torch.parallel.mesh import local_config, shard_params, shard_tree
+    from zonos_tpu_torch.training import train as T
+
+    dev = next(iter(meshes.values())).device
+    cfg = _mc_configs(dev)["int8"]
+    m = Zonos.from_config(cfg, seed=1, dtype=torch.float32, device=dev)
+    params = {k: m.params[k] for k in ("embeddings", "heads", "backbone")}
+    del m
+    cond, codes, mask = batch
+    t = time.perf_counter()
+    loss1, g1 = T.value_and_grad(lambda c, dc, mk: T.loss_terms(params, cfg, c, dc, mk), T.trainable_leaves(params),
+                                 1, cond, codes, mask)
+    loss1 = float(loss1)
+    one_s = time.perf_counter() - t
+    names = [p for p, t_ in T.named_leaves(params) if t_.is_floating_point()]
+    g1 = _tree_of(params, names, g1)
+    targets = T.count_targets(codes, mask, cfg.head_vocab_size)
+    out = {}
+    for key, mesh in meshes.items():
+        want = dict(T.named_leaves(shard_tree(cfg, g1, mesh.tp, mesh.tp_rank)))
+        local = shard_params(mesh, cfg, params)
+        lcfg = local_config(cfg, mesh.tp)
+        loss, g = T.sharded_value_and_grad(
+            mesh, lambda c, dc, mk: T.loss_terms(local, lcfg, c, dc, mk, mesh=mesh), T.trainable_leaves(local), 1,
+            *T.shard_batch(mesh, cond, codes, mask))
+        lnames = [p for p, t_ in T.named_leaves(local) if t_.is_floating_point()]
+        cos = {p: _cos(a, want[p]) for p, a in zip(lnames, g)}
+        out[key] = {"loss": float(loss), "loss_one_device": loss1, "loss_rel": abs(float(loss) - loss1) / abs(loss1),
+                    "grad_cos_min": min(cos.values()), "grad_cos_argmin": min(cos, key=cos.get),
+                    "leaves_compared": len(cos), "one_device_grad_s": one_s, "targets": targets}
+        del g, want, local
+    del g1
+    for key, mesh in meshes.items():
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+        state, step = T.make_sharded_train_step(mesh, cfg, T.make_optimizer(lr=1e-4, warmup=1), params)
+        local_batch = T.shard_batch(mesh, cond, codes, mask)
+        losses, secs = [], []
+        for _ in range(steps):
+            t = time.perf_counter()
+            state, lo = step(state, *local_batch)
+            losses.append(float(lo))  # syncs
+            secs.append(time.perf_counter() - t)
+        steady = float(np.median(secs[1:]))
+        # the card's peak holds the whole model's f32 params too, which make_sharded_train_step shards
+        out[key].update(losses=losses, s_per_step=secs, steady_s_per_step=steady, targets_per_s=targets / steady,
+                        peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9 if dev.type == "cuda" else None)
+        del state, step
+        if mesh.rank == 0:
+            print(f"phase13 rank 0: train {key} done", flush=True)
+    return out
+
+
+# the profiler's span over each collective ("nccl:all_reduce"), not a kernel
+NCCL_ANNOTATION = "nccl:"
+
+
+def _mc_profile(mesh, kept) -> dict | None:
+    """A short tp 4 int8 generate on every rank, under torch.profiler on
+    rank 0 only (last in that rank: the profiler raises host cost per op for
+    the rest of its process): nccl's device time and kernels per step beside
+    all kernels' device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from zonos_tpu_torch.ops.sampling import SamplingParams
+
+    local, cfg, cond = kept
+    greedy = SamplingParams(temperature=0.0)
+    run = lambda: _decode_job(local, cfg, cond, MC_PROFILE_FRAMES, greedy, mesh.device, mesh=mesh)  # noqa: E731
+    run()
+    if mesh.rank != 0:
+        run()
+        return None
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _codes, _logits, stats, _counts = run()
+    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.key.startswith(NCCL_ANNOTATION)]
+    steps = stats["decode_steps"] + 1  # the prefill counted as one more step
+    nccl = [e for e in kernels if e.key.startswith("nccl")]
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    if device_ms == 0:
+        return {"frames": MC_PROFILE_FRAMES, "nccl_device_ms_per_step": "not measured (the profiler saw no kernels)"}
+    return {"frames": MC_PROFILE_FRAMES, "steps_with_prefill": steps,
+            "nccl_device_ms_per_step": sum(e.self_device_time_total for e in nccl) / 1e3 / steps,
+            "nccl_kernels_per_step": sum(e.count for e in nccl) / steps,
+            "nccl_kernels": sorted({e.key[:60] for e in nccl}),
+            "device_ms_per_step": device_ms / steps, "device_busy_ms_per_step": _busy_ms(prof) / steps,
+            "kernel_launches_per_step": sum(e.count for e in kernels) / steps,
+            "wall_ms_per_frame_profiled": stats["decode_s"] * 1e3 / stats["decode_steps"]}
+
+
+def _mc_allreduce_us(mesh, calls: int = 200) -> dict:
+    """Host µs per all-reduce over the tp group of a decode step's partials
+    ([2, 1, 2048] f32), issued back to back (one sync at the end) and each
+    followed by a sync."""
+    import torch.distributed as dist
+
+    from zonos_tpu_torch.runtime.generate import _sync
+
+    x = torch.ones((2, 1, 2048), device=mesh.device)
+    out = {}
+    for key, sync in (("back_to_back", False), ("synced", True)):
+        for _ in range(10):
+            dist.all_reduce(x, group=mesh.tp_group)
+        _sync(mesh.device)
+        t = time.perf_counter()
+        for _ in range(calls):
+            dist.all_reduce(x, group=mesh.tp_group)
+            if sync:
+                _sync(mesh.device)
+        _sync(mesh.device)
+        out[key] = (time.perf_counter() - t) / calls * 1e6
+    return out
+
+
+def _mc_rank(backend, device, refs, batch):
+    """A rank of phase 13's group (4 ranks, one per card): the inference
+    cases, the train steps, then the profile."""
+    from zonos_tpu_torch.parallel.mesh import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    counter = _CollectiveCount()
+    tp = make_mesh(dp=1, tp=4, backend=backend, device=device)
+    dp = make_mesh(dp=4, tp=1, backend=backend, device=device)
+    dptp = make_mesh(dp=2, tp=2, backend=backend, device=device)
+    dev = tp.device
+    out = {"rank": tp.rank, "device": str(dev),
+           "card": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"}
+    with torch.no_grad():
+        infer, kept = _mc_infer(counter, tp, dp, dptp, refs)
+    out.update(infer)
+    out["allreduce_us"] = _mc_allreduce_us(tp)
+    out["train"] = _mc_train({"dp2xtp2": dptp, "dp1xtp4": tp}, batch)
+    with torch.no_grad():
+        out["profile"] = _mc_profile(tp, kept)
+    return out
+
+
+def _mc_refs(device="cuda") -> tuple[dict, dict]:
+    """The one-device runs on ``device`` (card 0), before the ranks start:
+    greedy B 1 on each model (codes and first logits, and the noise floor of
+    teacher forcing along those codes: the agreement of the same model at
+    B 2 of that one row, whose kernels sum in another order), greedy and
+    min-p (a seed per row) B 4 on int8. Returns (refs, ms per frame)."""
+    from zonos_tpu_torch.ops.sampling import SamplingParams
+
+    greedy, min_p = SamplingParams(temperature=0.0), SamplingParams(min_p=0.1)
+    refs, one = {}, {}
+    with torch.no_grad():
+        for name, cfg in _mc_configs(device).items():
+            params = _mc_model(name, cfg, device)
+            cond = _par_cond(cfg.backbone.d_model)
+            jobs = [(name, cond, greedy, 1, 0)]
+            if name == "int8":
+                cond4 = _par_cond(cfg.backbone.d_model, b=4, seed=3)
+                jobs += [("dp2xtp2", cond4, greedy, 4, 0), ("dp4", cond4, min_p, 4, MC_SEEDS)]
+            for key, c, sampling, b, seed in jobs:
+                _decode_job(params, cfg, c, WARM_FRAMES, sampling, device, batch_size=b, seed=seed)
+                codes, logits, stats, _ = _decode_job(params, cfg, c, MC_FRAMES, sampling, device, batch_size=b,
+                                                      seed=seed)
+                refs[key] = {"codes": codes, "logits": logits}
+                one[key] = stats["decode_s"] * 1e3 / stats["decode_steps"]
+            two = np.concatenate([cond[:1], cond[:1], cond[1:], cond[1:]])  # [c, c | u, u]
+            refs[name]["floor"] = _forced_agreement(params, cfg, two, np.concatenate([refs[name]["codes"]] * 2),
+                                                    device)["share"]
+            del params
+    return refs, one
+
+
+def _mc_check(results: list, refs: dict, one: dict, on_card: bool) -> dict:
+    """Phase 13's gates over the ranks' results: prints one line per case,
+    then fails naming every gate missed. Returns the launch counts of rank 0
+    per path. ``on_card`` False (a CPU rehearsal): no kernel launches are
+    expected."""
+    cfgs = _mc_configs("cuda" if on_card else "cpu")
+    counts_by_path, failed = {}, []
+
+    def want_counts(cfg, steps, bits=8):
+        L, n_attn = cfg.backbone.n_layer, len(cfg.backbone.attn_layer_idx)
+        if bits == 4:  # in_proj, out_proj, fc1, fc2 on K4; the heads (int8) on K1
+            want = {"int8_matmul": steps + 1, "attn_core_int8": steps * n_attn, "fused_mlp_int8": 0,
+                    "fused_mlp_int8_split": 0, "int4_matmul": steps * 4 * L}
+        else:  # in_proj + out_proj per layer and the heads on K1 (and the prefill's heads), K3 per MLP
+            want = {"int8_matmul": steps * (2 * L + 1) + 1, "attn_core_int8": steps * n_attn,
+                    "fused_mlp_int8": steps * L, "fused_mlp_int8_split": 0, "int4_matmul": 0}
+        return {k: v * on_card for k, v in want.items()}
+
+    def collectives(cfg, steps, tp):
+        """Per step and for the prefill: one all-reduce after each row-parallel
+        product (out_proj and fc2 per layer, and per Mamba layer the gathered
+        in_proj), and the tokens' check."""
+        if tp == 1:
+            return 0
+        L, n_attn = cfg.backbone.n_layer, len(cfg.backbone.attn_layer_idx)
+        return (steps + 1) * (2 * L + (L - n_attn if cfg.backbone.is_hybrid else 0) + 1)
+
+    for name in ("int8", "int4", "hybrid"):
+        cfg, key = cfgs[name], f"tp4_{name}"
+        per = [r[key] for r in results]
+        for p in per:
+            steps = p["stats"]["decode_steps"]
+            want = want_counts(cfg, steps, 4 if name == "int4" else 8)
+            if p["counts"] != want:
+                failed.append(f"phase 13: {key} launch counts {p['counts']} != expected {want}")
+            if p["collectives"] != collectives(cfg, steps, 4):
+                failed.append(f"phase 13: {key} collectives {p['collectives']} != {collectives(cfg, steps, 4)}")
+            if p["codes"].shape != (1, cfg.codebook_dimension, MC_FRAMES) or \
+                    not np.array_equal(p["own_rows"], per[0]["own_rows"]):
+                failed.append(f"phase 13: {key}: the tp ranks' codes differ")
+        if name == "int8" and not all(np.array_equal(p["min_p"]["codes"], per[0]["min_p"]["codes"]) for p in per):
+            failed.append(f"phase 13: {key} min-p: the tp ranks' codes differ")
+        steps = per[0]["stats"]["decode_steps"]
+        res = {"frames": MC_FRAMES, "layers": cfg.backbone.n_layer, "first_logits_corr": min(p["corr"] for p in per),
+               "forced_agreement": min(p["forced"]["share"] for p in per),
+               "forced_compared": per[0]["forced"]["compared"],
+               "greedy_equal_share": float(np.mean(per[0]["codes"] == refs[name]["codes"])),
+               "ms_per_frame_tp4": [p["ms_per_frame"] for p in per], "ms_per_frame_one_device": one[name],
+               "prefill_ms_tp4": [p["stats"]["prefill_s"] * 1e3 for p in per],
+               "launches_per_step": {k: v / steps for k, v in per[0]["counts"].items() if v},
+               "collectives_per_step": per[0]["collectives"] / (steps + 1)}
+        if name == "int8":
+            res["ms_per_frame_tp4_min_p"] = [p["min_p"]["ms_per_frame"] for p in per]
+        # Agreement >= 90%, or within 2 points of the one-device floor where the
+        # floor itself is lower: the full-depth hybrid's random weights give
+        # near-tied picks that a B 2 run of the same row on one device already
+        # moves below 90%. The logits correlation is gated on the flagship.
+        res["one_device_floor"] = refs[name]["floor"]
+        res["agreement_gate"] = min(0.90, refs[name]["floor"] - 0.02)
+        print(f"phase13 tp4 {name}:", json.dumps(res), flush=True)
+        if res["forced_agreement"] < res["agreement_gate"] or (name != "hybrid" and res["first_logits_corr"] < 0.999):
+            failed.append(f"phase 13: tp 4 {name}: first-step logits corr {res['first_logits_corr']:.6f} (gate 0.999 "
+                          f"on the flagship), teacher-forced agreement {res['forced_agreement']:.4f} (gate "
+                          f"{res['agreement_gate']:.4f})")
+        counts_by_path[key] = per[0]["counts"]
+
+    cfg = cfgs["int8"]
+    per = [r["dp4"] for r in results]
+    for p in per:
+        lo, hi = p["rows"]
+        if p["codes"].shape != (4, cfg.codebook_dimension, MC_FRAMES) or not np.array_equal(p["codes"][lo:hi],
+                                                                                          p["ref"]):
+            failed.append(f"phase 13: dp 4 row {lo} differs from the one-device B 1 run of that row")
+        if not np.array_equal(p["codes"], per[0]["codes"]) or p["collectives"] != 0:
+            failed.append(f"phase 13: dp 4: the ranks returned different codes, or {p['collectives']} collectives ran")
+        if p["counts"] != want_counts(cfg, p["stats"]["decode_steps"]):
+            failed.append(f"phase 13: dp 4 launch counts {p['counts']}")
+    counts_by_path["dp4"] = per[0]["counts"]
+    print("phase13 dp4 int8 (B 4, a seed per row, 1 row per rank):", json.dumps({
+        "rows_bit_equal": all(np.array_equal(p["codes"][slice(*p["rows"])], p["ref"]) for p in per),
+        "ms_per_frame_dp4": [p["ms_per_frame"] for p in per],
+        "ms_per_frame_one_device_b1": [p["ref_ms_per_frame"] for p in per],
+        "ms_per_frame_one_device_b4": one["dp4"]}), flush=True)
+
+    per = [r["dp2xtp2"] for r in results]
+    for p in per:
+        steps = p["stats"]["decode_steps"]
+        if p["counts"] != want_counts(cfg, steps) or p["collectives"] != collectives(cfg, steps, 2):
+            failed.append(f"phase 13: dp 2 x tp 2 launches {p['counts']}, collectives {p['collectives']}")
+        if not np.array_equal(p["codes"], per[0]["codes"]) or p["codes"].shape != (4, cfg.codebook_dimension,
+                                                                                  MC_FRAMES):
+            failed.append("phase 13: dp 2 x tp 2: the ranks returned different codes")
+    for dp_rank in range(2):  # the two tp ranks of each dp index
+        a, b = per[2 * dp_rank], per[2 * dp_rank + 1]
+        if a["rows"] != b["rows"] or not np.array_equal(a["own_rows"], b["own_rows"]):
+            failed.append(f"phase 13: dp 2 x tp 2: the tp ranks of dp index {dp_rank} differ")
+    res = {"forced_agreement": min(p["forced"]["share"] for p in per), "forced_compared": [p["forced"]["compared"]
+                                                                                         for p in per],
+           "greedy_equal_share": float(np.mean(per[0]["codes"] == refs["dp2xtp2"]["codes"])),
+           "ms_per_frame": [p["ms_per_frame"] for p in per], "ms_per_frame_one_device_b4": one["dp2xtp2"],
+           "collectives_per_step": per[0]["collectives"] / (per[0]["stats"]["decode_steps"] + 1)}
+    print("phase13 dp2 x tp2 int8 (B 4, 2 rows per dp index):", json.dumps(res), flush=True)
+    if res["forced_agreement"] < 0.90:
+        failed.append(f"phase 13: dp 2 x tp 2 teacher-forced agreement {res['forced_agreement']:.4f} (gate 0.90)")
+    counts_by_path["dp2xtp2"] = per[0]["counts"]
+
+    for key in ("dp2xtp2", "dp1xtp4"):
+        per = [r["train"][key] for r in results]
+        res = {k: per[0][k] for k in ("loss", "loss_one_device", "losses", "targets", "leaves_compared")}
+        res.update({"loss_rel": max(p["loss_rel"] for p in per), "grad_cos_min": min(p["grad_cos_min"] for p in per),
+                    "grad_cos_argmin": min(per, key=lambda p: p["grad_cos_min"])["grad_cos_argmin"],
+                    "s_per_step": [p["s_per_step"] for p in per],
+                    "steady_s_per_step": [p["steady_s_per_step"] for p in per],
+                    "targets_per_s": [p["targets_per_s"] for p in per], "peak_gb": [p["peak_gb"] for p in per],
+                    "one_device_grad_s": [p["one_device_grad_s"] for p in per]})
+        print(f"phase13 train {key} ({cfgs['int8'].backbone.n_layer} layers, f32, 4 x "
+              f"{MC_TRAIN_FRAMES if on_card else 24} frames):",
+              json.dumps(res), flush=True)
+        losses = res["losses"]
+        if res["loss_rel"] > 1e-5 or res["grad_cos_min"] < 0.99999:
+            failed.append(f"phase 13: train {key}: loss {res['loss_rel']:.3g} relative, gradient cosine "
+                  f"{res['grad_cos_min']:.8f} (gates 1e-5, 0.99999)")
+        if not (all(np.isfinite(losses)) and losses[-1] < losses[0]) or any(p["losses"] != losses for p in per):
+            failed.append(f"phase 13: train {key}: losses {[p['losses'] for p in per]} not finite, falling and equal")
+    print("phase13 all-reduce of [2, 1, 2048] f32 over tp 4, host µs per call:",
+          json.dumps([r["allreduce_us"] for r in results]), flush=True)
+    print("phase13 profile (rank 0, tp 4 int8):", json.dumps(results[0]["profile"]), flush=True)
+    if failed:
+        _fail("; ".join(failed))
+    return counts_by_path
+
+
+def _card_lines() -> list:
+    """``nvidia-smi --query-gpu=name,power.limit`` of every card."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()
+
+
+def _phase_multicard_main() -> int:
+    """``--phase13``: tp 4, dp 4 and dp 2 x tp 2 generate and the dp 2 x
+    tp 2 and dp 1 x tp 4 train steps over nccl, one rank per card, on four
+    cards. Fewer cards raise: nothing falls back."""
+    cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if cards < MC_WORLD:
+        raise RuntimeError(f"phase 13 needs {MC_WORLD} cards (one rank per card over nccl); {cards} visible")
+    from zonos_tpu_torch.conditioning import native_g2p
+    from zonos_tpu_torch.ops import _build
+    from zonos_tpu_torch.parallel.mesh import spawn
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    for i, line in enumerate(_card_lines()):
+        print(f"card {i}: {line}", flush=True)
+    print(json.dumps({"torch": torch.__version__, "cuda": torch.version.cuda, "nccl": torch.cuda.nccl.version(),
+                      "python": sys.version.split()[0]}), flush=True)
+    g2p = threading.Thread(target=native_g2p.available)  # g++ beside the nvcc builds
+    g2p.start()
+    _build.build_all()
+    g2p.join()
+    print(f"phase13 build: {time.perf_counter() - t0:.1f} s", flush=True)
+    t = time.perf_counter()
+    refs, one = _mc_refs("cuda")
+    batch = _mc_train_batch(_mc_configs()["int8"], "cuda")
+    torch.cuda.empty_cache()
+    print(f"phase13 one-device references on card 0: {time.perf_counter() - t:.1f} s; ms per frame",
+          json.dumps(one), flush=True)
+    t = time.perf_counter()
+    results = spawn(_mc_rank, MC_WORLD, "nccl", "cuda", refs, batch, timeout=420)
+    print(f"phase13 ranks (nccl, world {MC_WORLD}, one card each: "
+          f"{[r['device'] + ' ' + r['card'] for r in results]}): {time.perf_counter() - t:.1f} s", flush=True)
+    counts = _mc_check(results, refs, one, on_card=True)
+    print(f"phase13 total: {time.perf_counter() - t0:.1f} s", flush=True)
+    print(json.dumps({"launches_by_path": counts}), flush=True)
+    for i, line in enumerate(_card_lines()):
+        print(f"card {i}: {line}", flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                              "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+# ---------------------------------------------------------------------------
 # Phase 9: the profiler, last
 # ---------------------------------------------------------------------------
 
@@ -2571,7 +3111,7 @@ def _busy_ms(prof) -> float:
     intervals (K3's fc2, launched early, overlaps its fc1, so the sum of
     kernel times counts that span twice)."""
     spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
+                   if e.device_type == torch.autograd.DeviceType.CUDA and not e.name.startswith(NCCL_ANNOTATION))
     busy, end = 0.0, float("-inf")
     for lo, hi in spans:
         if hi > end:
@@ -2711,7 +3251,7 @@ def main() -> int:
         entry("attn_core_int8", "zonos_tpu_torch/csrc/attn_core_int8.cu", "zonos_tpu/ops/pallas_attention.py:98",
               k2, counts["attn_core_int8"]),
         entry("fused_mlp_int8", "zonos_tpu_torch/csrc/fused_mlp_int8.cu", "zonos_tpu/ops/pallas_matmul.py:200",
-              [k3["K3"], k3["K3 hybrid"], k3["K3 tp2"]], counts["fused_mlp_int8"]),
+              [k3["K3"], k3["K3 hybrid"], k3["K3 tp2"], k3["K3 tp4"]], counts["fused_mlp_int8"]),
         entry("fused_mlp_int8_split", "zonos_tpu_torch/csrc/fused_mlp_int8.cu", "zonos_tpu/ops/pallas_matmul.py:250",
               [k3["K3s"]], counts["fused_mlp_int8_split"]),
         entry("int4_matmul", "zonos_tpu_torch/csrc/int4_matmul.cu", "zonos_tpu/ops/pallas_matmul.py:120",
@@ -2722,6 +3262,8 @@ def main() -> int:
               [k56["manual_sum_once"]], probe_counts["manual_sum_once"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
+    print(f"phase13: not run by this run; it runs as `python3 chip_smoke.py --phase13` on a machine with "
+          f"{MC_WORLD} cards (one rank per card over nccl); this one sees {torch.cuda.device_count()}", flush=True)
     print(f"card: {_card_line()}", flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                               "count": torch.cuda.device_count()}}), flush=True)
@@ -2739,4 +3281,6 @@ if __name__ == "__main__":
         sys.exit(_phase_train_main())
     if sys.argv[1:] == ["--phase12"] and torch.cuda.is_available():
         sys.exit(_phase_parallel_main())
+    if sys.argv[1:] == ["--phase13"]:
+        sys.exit(_phase_multicard_main())
     sys.exit(main())

@@ -283,3 +283,14 @@ def test_chip_smoke_fails_without_a_card():
                          text=True, timeout=300)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def test_chip_smoke_phase13_needs_four_cards():
+    """``--phase13`` runs one rank per card over nccl: with fewer than four
+    cards it raises before anything runs, exits non-zero and prints no result."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    out = subprocess.run([sys.executable, "chip_smoke.py", "--phase13"], cwd=REPO, env=env, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode != 0
+    assert "phase 13 needs 4 cards (one rank per card over nccl); 0 visible" in out.stderr
+    assert '"ok"' not in out.stdout

@@ -4,8 +4,15 @@ JAX package's (``zonos_tpu/parallel/mesh.py``), on one process.
 JAX's ``named`` and the port's over the same tiny models' params (float,
 int8, int4; numpy arrays on JAX's side), leaf for leaf; each rank's shard shapes against JAX's ``shard_shape`` on 2
 virtual devices; the ranks' shards put back together in head order (qkv by
-heads, fc1 as [y | gate]) give every weight back; ``local_config``.
+heads, fc1 as [y | gate]) give every weight back; ``local_config``. At tp 4
+(tiny models with 8 query and 4 KV heads): each rank's ``shard_params``
+against JAX's ``shard_params`` on 4 virtual devices, shard for shard. The
+launcher: ``_rank_main`` binds the rank's card before the group starts and
+hands nccl that card; ``spawn`` refuses nccl without a card per rank before
+any process starts.
 """
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -179,3 +186,132 @@ def test_shards_placed_on_another_device_keep_the_heads_layout():
     assert local["heads"]["q"].shape == heads.shape and local["heads"]["q"].stride() == heads.stride()
     fc1 = local["backbone"]["layers"]["mlp"]["fc1"]["q"]
     assert fc1.is_contiguous() and fc1.shape[-1] == m.params["backbone"]["layers"]["mlp"]["fc1"]["q"].shape[-1] // 2
+
+
+def _tp4(cfg):
+    """``cfg`` with 8 query and 4 KV heads, so that attention splits over tp 4
+    (one KV head per rank); JAX's and the port's configs alike."""
+    bb = cfg.backbone
+    attn = dataclasses.replace(bb.attn_cfg, num_heads=8, num_heads_kv=4)
+    return dataclasses.replace(cfg, backbone=dataclasses.replace(bb, attn_cfg=attn))
+
+
+# The int4 transformer at d 512: 128 rows of out_proj per rank, one group of 128
+MODELS_TP4 = {
+    "transformer": (_tp4(j_tiny()), _tp4(tiny_transformer_config()), None),
+    "transformer-int8": (_tp4(j_tiny()), _tp4(tiny_transformer_config()), 8),
+    "transformer-int4": (_tp4(j_tiny(d_model=512)), _tp4(tiny_transformer_config(d_model=512)), 4),
+    "hybrid": (_tp4(j_tiny_hybrid()), _tp4(tiny_hybrid_config()), None),
+    "hybrid-int8": (_tp4(j_tiny_hybrid()), _tp4(tiny_hybrid_config()), 8),
+}
+
+
+def _split_by_heads(whole: np.ndarray, axis: int, segments: list[int], tp: int, r: int) -> np.ndarray:
+    """Rank r's head-wise piece: the r-th of tp pieces of each segment, in order."""
+    parts = np.split(whole, np.cumsum(segments)[:-1], axis=axis)
+    return np.concatenate([np.split(p, tp, axis=axis)[r] for p in parts], axis=axis)
+
+
+@pytest.mark.parametrize("name", sorted(MODELS_TP4))
+def test_tp4_shard_params_match_jax_shard_for_shard(name):
+    """Each rank's ``shard_params`` at dp 1 × tp 4 against the shard JAX's
+    ``shard_params`` puts on the device at that tp index of a 4-device mesh:
+    the same shape and dtype for every leaf, the same values for every
+    replicated or contiguously split leaf; the packed qkv and fc1 hold that
+    rank's heads and [y | gate] columns of the array JAX shards."""
+    jcfg, tcfg, bits = MODELS_TP4[name]
+    m = Zonos.from_config(tcfg, seed=0, dtype=torch.float32, device="cpu")
+    if bits:
+        m = m.quantize(bits=bits)
+    params = {k: m.params[k] for k in ("embeddings", "heads", "backbone")}
+    jmesh = JM.make_mesh(jax.devices()[:4], dp=1, tp=4)
+    jsharded = _flat(JM.shard_params(jmesh, jcfg, _numpy(params)))
+    whole = dict(named_leaves(params))
+    axes = TM.shard_axes(tcfg, params)
+    assert sorted(jsharded) == sorted(whole)
+    n_headwise = 0
+    for r in range(4):
+        mesh = TM.Mesh(dp=1, tp=4, rank=r, device=torch.device("cpu"), dp_group=None, tp_group=None,
+                       host_group=None)
+        local = dict(named_leaves(TM.shard_params(mesh, tcfg, params)))
+        for path, arr in jsharded.items():
+            shard = next(s for s in arr.addressable_shards if s.device == jmesh.devices[0, r])
+            want = np.asarray(shard.data)
+            got = local[path].numpy()
+            assert got.shape == want.shape and got.dtype == want.dtype, (path, r)
+            axis = axes[path]
+            last = axis is not None and axis == whole[path].dim() - 1
+            segments = TM._column_segments(tcfg.backbone, path, whole[path].shape[axis]) if last else [None]
+            if len(segments) == 1:
+                np.testing.assert_array_equal(got, want, err_msg=f"{path} rank {r}")
+            else:
+                n_headwise += 1
+                np.testing.assert_array_equal(got, _split_by_heads(np.asarray(arr), axis, segments, 4, r),
+                                              err_msg=f"{path} rank {r}")
+    assert n_headwise >= 4 * 2  # qkv and fc1 (and their int8 scales) on every rank
+
+
+def test_local_config_at_tp4_of_the_published_models():
+    """One tp 4 rank of the flagship and of Zonos-v0.1-hybrid: 4 query heads
+    and 1 KV head of 128, MLP widths / 4, the Mamba2 dims whole."""
+    from zonos_tpu_torch.config import zonos_v01_hybrid_config, zonos_v01_transformer_config
+
+    t = TM.local_config(zonos_v01_transformer_config(), 4).backbone
+    assert (t.attn_cfg.num_heads, t.attn_cfg.num_heads_kv, t.head_dim, t.attn_mlp_d_intermediate) == (4, 1, 128, 2048)
+    full_h = zonos_v01_hybrid_config().backbone
+    h = TM.local_config(zonos_v01_hybrid_config(), 4).backbone
+    assert (h.attn_cfg.num_heads, h.attn_cfg.num_heads_kv, h.head_dim) == (4, 1, 128)
+    assert (h.attn_mlp_d_intermediate, h.d_intermediate) == (2048, 1024)
+    assert h.ssm_cfg == full_h.ssm_cfg and h.d_model == full_h.d_model == 2048
+
+
+def _record_rank(backend, device, calls):
+    calls.append(("fn", backend, device))
+    return {"backend": backend, "calls": list(calls)}
+
+
+@pytest.fixture
+def four_cards(monkeypatch):
+    """torch.cuda as on a host with four cards; set_device, init_process_group
+    and destroy_process_group recorded in call order instead of run."""
+    calls = []
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    monkeypatch.setattr(torch.cuda, "set_device", lambda d: calls.append(("set_device", torch.device(d))))
+    monkeypatch.setattr(TM.dist, "init_process_group",
+                        lambda backend, **kw: calls.append(("init", backend, kw.get("device_id"))))
+    monkeypatch.setattr(TM.dist, "destroy_process_group", lambda *a: calls.append(("destroy",)))
+    return calls
+
+
+@pytest.mark.parametrize("backend,device,rank,want_device", [
+    ("nccl", "cuda", 2, torch.device("cuda", 2)),
+    ("gloo", "cuda", 3, torch.device("cuda", 3)),
+    ("gloo", "cpu", 1, None),
+])
+def test_rank_main_binds_the_card_before_the_group_starts(four_cards, tmp_path, backend, device, rank,
+                                                          want_device):
+    """``_rank_main`` sets the rank's card first, then starts the group, with
+    ``device_id`` that card for nccl only; then runs ``fn`` and ends the group."""
+    import pickle
+
+    calls = four_cards
+    TM._rank_main(rank, _record_rank, 4, backend, device, str(tmp_path), (calls,), 30.0)
+    device_id = want_device if backend == "nccl" else None
+    want = ([("set_device", want_device)] if want_device is not None else []) + [
+        ("init", backend, device_id), ("fn", backend, device), ("destroy",)]
+    assert calls == want
+    with open(tmp_path / f"rank{rank}.pkl", "rb") as f:
+        assert pickle.load(f) == {"backend": backend, "calls": want[:-1]}
+
+
+@pytest.mark.parametrize("device,cards", [("cuda", 2), ("cpu", 4)])
+def test_spawn_refuses_nccl_without_a_card_per_rank(monkeypatch, four_cards, device, cards):
+    """nccl never falls back: 4 ranks on 2 cards, or on the CPU, raise before
+    any process starts."""
+    started = []
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
+    monkeypatch.setattr(torch.multiprocessing, "start_processes", lambda *a, **k: started.append(a))
+    with pytest.raises(ValueError, match=f"nccl needs one card per rank: 4 ranks on {device}, {cards} cards"):
+        TM.spawn(_record_rank, 4, "nccl", device, [])
+    assert not started and not four_cards

@@ -134,12 +134,16 @@ def make_mesh(dp: int | None = None, tp: int | None = None, *, backend: str, dev
 # ---------------------------------------------------------------------------
 
 def _rank_main(rank, fn, world, backend, device, tmp, args, timeout):
+    # The rank's card is bound before the group starts: nccl's communicators
+    # (the default group's and every new_group's) take the current device,
+    # and device_id makes the default group's bind to this card at once.
+    dev = mesh_device(backend, device, rank, world)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
     dist.init_process_group(backend, init_method=f"file://{tmp}/store", world_size=world, rank=rank,
-                            timeout=datetime.timedelta(seconds=timeout))
+                            timeout=datetime.timedelta(seconds=timeout),
+                            device_id=dev if backend == "nccl" else None)
     try:
-        dev = mesh_device(backend, device, rank, world)
-        if dev.type == "cuda":
-            torch.cuda.set_device(dev)
         out = fn(backend, device, *args)
     finally:
         dist.destroy_process_group()
@@ -156,7 +160,9 @@ def spawn(fn, world: int, backend: str, device=None, *args, timeout: float = 900
     ``fn`` must be importable by name (a module-level function): the ranks
     start from a fresh interpreter and import its module. A rank that raises
     ends every rank and raises here; so does the ``timeout`` (seconds), which
-    is also each collective's timeout. ``device`` defaults to the card.
+    is also each collective's timeout. ``device`` defaults to the card: rank
+    r takes card r % cards (``mesh_device``), made its current device before
+    the group starts.
     """
     for r in range(world):
         mesh_device(backend, device, r, world)  # raise here, before any process starts
