@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port (zonos_tpu_torch) on one NVIDIA card, and
 its sharded paths on four.
 
-    python3 chip_smoke.py             # one card: phases 0-12
+    python3 chip_smoke.py             # one card: phases 0-12, then 14
     python3 chip_smoke.py --phase13   # four cards: phase 13 only
 
 Phases; any failure exits non-zero:
@@ -139,15 +139,29 @@ Phases; any failure exits non-zero:
      (first loss within 1e-5 relative of one device's, gradient cosine >=
      0.99999, 3 steps falling; seconds per step, targets per second, peak GB
      per card); ms per frame against one device; last, nccl's device time
-     per step from a profile of rank 0.
+     per step from a profile of rank 0;
+ 14. the repository's commands (zonos_tpu_torch.tools), in a process of its
+     own (``--phase14``, after phase 12): make_g2p_golden --diff (0 changed
+     entries over the 199 entries of 109 codes); e2e_demo on the flagship
+     (seeded, int8 weights and KV, through serving.model_manager and
+     pipeline.tts) in a temporary working directory: three 44.1 kHz wavs of
+     finite PCM equal to what tts returned, long_cold equal to long_warm
+     sample for sample, K1-K3 launches exact over the three requests, each
+     run's RTF and ms per frame; the seeded bf16 flagship saved as a native
+     checkpoint, exported by export_checkpoint, checked by
+     validate_checkpoint (load PASS, every other row SKIP with its reason,
+     exit 0) and read back by from_local (every param bit-equal, 32 greedy
+     int8 frames equal to the source's, launches exact), sizes and seconds;
+     profile_components at 86 frames.
 With ``--parts``, only the device kernels of one K3, K3s or K4 call at the
 main path's shapes, each with its device time under torch.profiler. With
 ``--pair-streams``, only two flagship requests alone and at once, on the
 default stream and on a stream each.
 Prints one line per kernel check, a ``{"kernels": [...]}`` line (``launches``
 from phase 5, or phase 6 for K4, and ``launches_by_path`` for phases 5, 6, 8,
-10 ("server") and 11 ("lora_int8": the merged model's generate,
-"speculative") and 12 ("tp2", "tp2_hybrid", "dp2": one rank's counts)),
+10 ("server"), 11 ("lora_int8": the merged model's generate,
+"speculative"), 12 ("tp2", "tp2_hybrid", "dp2": one rank's counts) and 14
+("demo", "export_int8")),
 a line naming ``--phase13`` and the cards this run sees, the card's name
 and power limit, and last
 ``{"ok": true, "device": {...}}``.
@@ -1916,7 +1930,7 @@ def _phase_server_main(single_rtf: float) -> int:
 
 
 def _child_phase(phase: int, args: list, marker: str) -> dict:
-    """A phase in a child process (phases 10-12): its timings are not
+    """A phase in a child process (phases 10-12 and 14): its timings are not
     raised by the profiler of phase 9, and its threads and CUDA work share
     nothing with this process's. The child's output is passed on line by
     line; it must exit 0. Returns the launch counts it prints after
@@ -2584,6 +2598,199 @@ def _phase_parallel_main() -> int:
 
 
 # ---------------------------------------------------------------------------
+# Phase 14: the repository's commands (zonos_tpu_torch.tools)
+# ---------------------------------------------------------------------------
+
+PHASE14_RESULT = "phase14 result:"
+G2P_ENTRIES, G2P_CODES = 199, 109  # tests/data/g2p_golden.json
+EXPORT_FRAMES = 32  # greedy int8 frames of the exported model against its source's
+
+
+def _expected_int8(steps: list, n_layer: int) -> dict:
+    """K1-K3 launches of int8 decodes of ``steps`` decode steps each: per step
+    in_proj and out_proj per layer and the output heads on K1, one K2 and one
+    K3 per layer; each prefill's last-position heads on K1."""
+    n = sum(steps)
+    return {"int8_matmul": n * (2 * n_layer + 1) + len(steps), "attn_core_int8": n * n_layer,
+            "fused_mlp_int8": n * n_layer, "fused_mlp_int8_split": 0, "int4_matmul": 0}
+
+
+def _commands_config(device):
+    from zonos_tpu_torch.config import tiny_transformer_config, zonos_v01_transformer_config
+
+    return zonos_v01_transformer_config() if device == "cuda" else tiny_transformer_config()
+
+
+def _phase_g2p() -> None:
+    """``make_g2p_golden --diff`` on this host: no entry of the snapshot changed."""
+    from zonos_tpu_torch.tools import make_g2p_golden
+
+    t = time.perf_counter()
+    rc = make_g2p_golden.main(["--diff"])
+    golden = make_g2p_golden.build()
+    n = sum(len(rows) for rows in golden.values())
+    print(f"phase14 make_g2p_golden --diff: exit {rc} over {n} entries of {len(golden)} codes "
+          f"({time.perf_counter() - t:.2f} s for both passes)", flush=True)
+    if rc != 0 or (n, len(golden)) != (G2P_ENTRIES, G2P_CODES):
+        _fail(f"phase 14: make_g2p_golden --diff exit {rc}, {n} entries of {len(golden)} codes")
+
+
+def _phase_demo(card: str, device: str) -> dict:
+    """``e2e_demo`` on the flagship (the card) or the tiny model (the CPU) in a
+    temporary working directory: three 44.1 kHz wavs of finite PCM, equal to
+    what ``tts`` returned, long_cold equal to long_warm sample for sample, and
+    K1-K3's launches exact over the three requests. Returns the launch counts."""
+    from zonos_tpu_torch.audio.io import read_wav
+    from zonos_tpu_torch.tools import e2e_demo
+
+    wrappers = _kernel_wrappers()
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as work:
+        os.chdir(work)
+        try:
+            t = time.perf_counter()
+            model = e2e_demo.load_model("transformer" if device == "cuda" else "tiny", device)
+            print(f"phase14 demo model load (seeded preset, int8 quantize): {time.perf_counter() - t:.1f} s",
+                  flush=True)
+            for w in wrappers:
+                w.launches = 0
+            results = e2e_demo.run(model)
+            counts = {w.__name__: w.launches for w in wrappers}
+            files = {r["name"]: read_wav(os.path.join(work, r["path"])) for r in results}
+        finally:
+            os.chdir(cwd)
+    for r in results:
+        wav, sr = files[r["name"]]
+        pcm = np.round(wav[0] * 32768.0).astype(np.int16)
+        if sr != 44100 or r["sr"] != 44100 or not np.isfinite(wav).all() or wav.shape[-1] == 0:
+            _fail(f"phase 14: demo_{r['name']}.wav: {sr} Hz, {wav.shape[-1]} samples, finite "
+                  f"{bool(np.isfinite(wav).all())}")
+        if not np.array_equal(pcm, r["wav"]):
+            _fail(f"phase 14: demo_{r['name']}.wav differs from the PCM tts returned")
+        steps = r["stats"]["decode_steps"]
+        print(f"phase14 demo {r['name']}:", json.dumps({
+            "audio_s": r["audio_s"], "wall_s": r["wall_s"], "rtf": r["rtf"], "decode_steps": steps,
+            "ms_per_frame": r["wall_s"] * 1e3 / steps, "prefill_ms": r["stats"]["prefill_s"] * 1e3,
+            "segments_s": r["stats"]["segments_s"], "dac_s": r["stats"]["dac_s"],
+            "pcm_rms": float(np.sqrt(np.mean(r["wav"].astype(np.float64) ** 2)))}), f"card: {card}", flush=True)
+    cold, warm = results[1]["wav"], results[2]["wav"]
+    same = cold.shape == warm.shape and np.array_equal(cold, warm)
+    print(f"phase14 demo long_cold == long_warm sample for sample: {same}", flush=True)
+    if not same:
+        n = min(cold.shape[-1], warm.shape[-1])
+        diff = np.flatnonzero(cold[:n] != warm[:n])
+        _fail(f"phase 14: long_cold {cold.shape} and long_warm {warm.shape} differ in {diff.size} of the first {n} "
+              f"samples, from sample {diff[:1].tolist()}")
+    if device == "cuda":
+        expected = _expected_int8([r["stats"]["decode_steps"] for r in results], model.config.backbone.n_layer)
+        print("phase14 demo launches:", json.dumps(counts), "expected:", json.dumps(expected), flush=True)
+        if counts != expected:
+            _fail(f"phase 14: demo launch counts {counts} != expected {expected}")
+    return counts
+
+
+def _phase_export(card: str, device: str) -> dict:
+    """The seeded bf16 model saved natively, exported by ``export_checkpoint``,
+    validated by ``validate_checkpoint`` (load PASS, every other row SKIP,
+    exit 0) and read back by ``from_local``: every param bit-equal, and
+    EXPORT_FRAMES greedy int8 frames equal to the source's. Returns the int8
+    launch counts of the two greedy runs."""
+    from zonos_tpu_torch.models.zonos import Zonos
+    from zonos_tpu_torch.tools import export_checkpoint, validate_checkpoint
+    from zonos_tpu_torch.utils.checkpoint import save_checkpoint
+
+    cfg = _commands_config(device)
+    src = Zonos.from_config(cfg, seed=0, dtype=torch.bfloat16, device=device)
+    info = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        native, ref = os.path.join(tmp, "native"), os.path.join(tmp, "ref")
+        t = time.perf_counter()
+        save_checkpoint(native, src.params, cfg)
+        info["save_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        rc = export_checkpoint.main(["--checkpoint", native, "--out", ref, "--device", device])
+        info["export_s"] = time.perf_counter() - t
+        cpath, wpath = os.path.join(ref, "config.json"), os.path.join(ref, "model.safetensors")
+        info["native_bytes"] = os.path.getsize(os.path.join(native, "params.pt"))
+        info["export_bytes"] = os.path.getsize(wpath)
+        t = time.perf_counter()
+        rows = validate_checkpoint.validate(cpath, wpath, device=device)
+        status = 0 if validate_checkpoint.print_table(rows) else 1
+        info["validate_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        loaded = Zonos.from_local(cpath, wpath, dtype=torch.bfloat16, device=device)
+        info["load_s"] = time.perf_counter() - t
+    print("phase14 export:", json.dumps(info), f"card: {card}", flush=True)
+    want = {"load": "PASS", "backbone": "SKIP", "dac": "SKIP", "speaker": "SKIP"}
+    got = {r.name: r.status for r in rows}
+    if rc != 0 or status != 0 or got != want or not all(r.detail for r in rows[1:]):
+        _fail(f"phase 14: export exit {rc}, validate exit {status}, rows {got} (expected {want})")
+    bad = _tree_diff(src.params, loaded.params)
+    if loaded.config != src.config or bad:
+        _fail(f"phase 14: the export read back differs: config equal {loaded.config == src.config}, params {bad[:5]}")
+    print("phase14 export read back: config equal, every param bit-equal", flush=True)
+
+    cond = np.random.default_rng(0).normal(size=(2, 80, cfg.backbone.d_model)).astype(np.float32) * 0.05
+    models = [src.quantize(), loaded.quantize()]
+    del src, loaded
+    wrappers = _kernel_wrappers()
+    for w in wrappers:
+        w.launches = 0
+    codes, steps = [], []
+    with torch.no_grad():
+        for m in models:
+            stats = {}
+            codes.append(m.generate(cond, max_new_tokens=EXPORT_FRAMES, sampling_params={"temperature": 0.0},
+                                    forbid_eos=True, stats=stats))
+            steps.append(stats["decode_steps"])
+    counts = {w.__name__: w.launches for w in wrappers}
+    same = codes[0].shape == codes[1].shape and np.array_equal(codes[0], codes[1])
+    print(f"phase14 export greedy int8 {EXPORT_FRAMES} frames, source vs export: codes equal {same}", flush=True)
+    if not same:
+        _fail(f"phase 14: greedy int8 codes of the export differ from the source's ({codes[0].shape}, {codes[1].shape})")
+    if device == "cuda":
+        expected = _expected_int8(steps, cfg.backbone.n_layer)
+        print("phase14 export launches:", json.dumps(counts), "expected:", json.dumps(expected), flush=True)
+        if counts != expected:
+            _fail(f"phase 14: export launch counts {counts} != expected {expected}")
+    return counts
+
+
+def _phase_commands(card: str, device: str = "cuda") -> dict:
+    """Phase 14 (the card; at tiny size on the CPU, a rehearsal in which no
+    kernel runs): the G2P snapshot, the demo, export → validate → reload and
+    profile_components at 86 frames. Returns launch counts by path."""
+    from zonos_tpu_torch.tools import profile_components
+
+    t0 = time.perf_counter()
+    _phase_g2p()
+    demo = _phase_demo(card, device)
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    export = _phase_export(card, device)
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    with torch.no_grad():
+        prof = profile_components.profile(_commands_config(device), frames=(86,), device=device)
+    print("phase14 profile_components:", json.dumps(prof), flush=True)
+    print(f"phase14 total: {time.perf_counter() - t0:.1f} s", flush=True)
+    return {"demo": demo, "export_int8": export}
+
+
+def _phase_commands_main() -> int:
+    """``--phase14``: phase 14 in a process of its own (started by
+    ``_child_phase``). Prints the launch counts as its last line."""
+    from zonos_tpu_torch.ops import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.build_all()  # built by the parent: finds every library
+    counts = _phase_commands(_card_line())
+    print(PHASE14_RESULT, json.dumps(counts), flush=True)
+    return 0
+
+
+# ---------------------------------------------------------------------------
 # Phase 13: the sharded paths over nccl, one rank per card (four cards)
 # ---------------------------------------------------------------------------
 
@@ -3231,9 +3438,10 @@ def main() -> int:
     server_counts = _child_phase(10, [repr(result["rtf"])], PHASE10_RESULT)
     train_counts = _child_phase(11, [], PHASE11_RESULT)
     par_counts = _child_phase(12, [], PHASE12_RESULT)
+    command_counts = _child_phase(14, [], PHASE14_RESULT)
 
     by_path = {"int8": counts, "int4": facade_counts, "hybrid_int8": hybrid_counts, "server": server_counts,
-               **train_counts, **par_counts}
+               **train_counts, **par_counts, **command_counts}
 
     def entry(name, source, replaces, rows, launches):
         main_row = rows[0]
@@ -3281,6 +3489,8 @@ if __name__ == "__main__":
         sys.exit(_phase_train_main())
     if sys.argv[1:] == ["--phase12"] and torch.cuda.is_available():
         sys.exit(_phase_parallel_main())
+    if sys.argv[1:] == ["--phase14"] and torch.cuda.is_available():
+        sys.exit(_phase_commands_main())
     if sys.argv[1:] == ["--phase13"]:
         sys.exit(_phase_multicard_main())
     sys.exit(main())

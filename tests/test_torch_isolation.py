@@ -87,6 +87,30 @@ def test_training_modules_import_without_jax_or_optax(module):
     assert out.stdout.startswith("ok")
 
 
+TOOLS_MODULES = ["e2e_demo", "export_checkpoint", "validate_checkpoint", "profile_components", "make_g2p_golden"]
+
+
+def test_tools_import_without_jax():
+    """Each command imports with jax, flax and the JAX package blocked, loads
+    neither transformers nor the JAX package's tools, and has ``main``."""
+    code = textwrap.dedent(f"""
+        import sys
+        for name in ("jax", "flax", "zonos_tpu"):
+            sys.modules[name] = None
+        import importlib
+        for module in {TOOLS_MODULES!r}:
+            mod = importlib.import_module("zonos_tpu_torch.tools." + module)
+            assert callable(mod.main), module
+            loaded = [n for n in sys.modules if sys.modules[n] is not None]
+            bad = [n for n in loaded if n.split(".")[0] in ("jax", "flax", "zonos_tpu", "transformers", "tools")]
+            assert not bad, (module, bad)
+        print("ok", len({TOOLS_MODULES!r}))
+    """)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == f"ok {len(TOOLS_MODULES)}"
+
+
 def test_webui_is_the_ports_own_copy():
     from zonos_tpu_torch.serving import server
 
@@ -116,7 +140,8 @@ def test_quantize_failure_is_raised_not_served_around(monkeypatch, tmp_path):
 @pytest.mark.parametrize("entry", ["zonos", "dac", "generate", "facade", "generate_audio", "stream", "speaker",
                                    "default_speaker", "speaker_audio", "dac_encode", "tts", "hybrid", "from_local",
                                    "from_pretrained", "model_manager", "server", "finetune_lora", "speculative",
-                                   "asr_check", "make_mesh", "spawn"])
+                                   "asr_check", "make_mesh", "spawn", "e2e_demo", "export_checkpoint",
+                                   "validate_checkpoint", "profile_components"])
 def test_entry_points_default_to_cuda(monkeypatch, tmp_path, entry):
     """Every entry point raises without a card unless the caller asks for the
     CPU. The facade's methods (prepare_conditioning, generate, generate_audio,
@@ -194,6 +219,23 @@ def test_entry_points_default_to_cuda(monkeypatch, tmp_path, entry):
             from zonos_tpu_torch.parallel.mesh import spawn
 
             spawn(print, 2, "gloo")
+        elif entry == "e2e_demo":
+            from zonos_tpu_torch.tools import e2e_demo
+
+            e2e_demo.main(["--model", "tiny"])
+        elif entry == "export_checkpoint":
+            from zonos_tpu_torch.tools import export_checkpoint
+
+            export_checkpoint.main(["--checkpoint", str(tmp_path), "--out", str(tmp_path / "ref")])
+        elif entry == "validate_checkpoint":
+            from zonos_tpu_torch.tools import validate_checkpoint
+
+            validate_checkpoint.main(["--config", str(tmp_path / "config.json"),
+                                      "--weights", str(tmp_path / "model.safetensors")])
+        elif entry == "profile_components":
+            from zonos_tpu_torch.tools import profile_components
+
+            profile_components.main([])
         else:
             next(streaming.generate_stream({}, tiny_transformer_config(), cond))
 

@@ -344,3 +344,8 @@ class DACAutoencoder:
     def decode(self, codes) -> np.ndarray:
         """codes [B, n_q, T] → float32 waveform [B, 1, T * hop] (numpy)."""
         return self.decode_device(codes).cpu().numpy()[:, None, :]
+
+    def decode_to_int16(self, codes) -> np.ndarray:
+        """codes [B, n_q, T] → the first row's 16-bit PCM, [T * hop, 1] (clipped
+        to ±32767 and truncated on the device, as ``decode_device`` does)."""
+        return self.decode_device(codes, to_int16=True).cpu().numpy()[0][:, None]

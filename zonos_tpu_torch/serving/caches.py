@@ -56,6 +56,20 @@ class TensorCacheManager:
             np.savez(tmp, data=value)
             os.replace(tmp, self._path(key))
 
+    def contains(self, key: str) -> bool:
+        with self._lock:
+            if key in self._mem:
+                return True
+        return self._path(key).exists()
+
+    def clear_memory(self) -> None:
+        with self._lock:
+            self._mem.clear()
+
+    def size(self) -> int:
+        with self._lock:
+            return len(self._mem)
+
 
 def _sanitize(name: str) -> str:
     return "".join(c if c.isalnum() or c in "-_." else "_" for c in str(name))

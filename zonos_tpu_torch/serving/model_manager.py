@@ -41,8 +41,9 @@ def serving_device() -> torch.device:
     return resolve_device(None)
 
 
-def load_model_if_needed(model_name: str = C.MODEL_TRANSFORMER, config: dict | None = None):
-    """Return the current model, (re)loading when the requested name changes."""
+def load_model_if_needed(model_name: str = C.MODEL_TRANSFORMER, config: dict | None = None, device=None):
+    """Return the current model, (re)loading when the requested name changes.
+    A model is loaded onto ``device``, by default ``serving_device()``'s."""
     global _CURRENT_NAME, _CURRENT_MODEL
     with _LOCK:
         if _CURRENT_MODEL is not None and _CURRENT_NAME == model_name:
@@ -50,7 +51,7 @@ def load_model_if_needed(model_name: str = C.MODEL_TRANSFORMER, config: dict | N
 
         from zonos_tpu_torch.models.zonos import Zonos
 
-        device = serving_device()
+        device = serving_device() if device is None else resolve_device(device)
         config = config or {}
         hybrid = "hybrid" in model_name
         local_path = str(config.get("PATH_MODEL_HYBRID" if hybrid else "PATH_MODEL_TRANSFORMER", "") or "")

@@ -24,7 +24,7 @@ from zonos_tpu_torch.speaker.resnet import (
     speaker_encoder_forward,
     speaker_state_dict_to_params,
 )
-from zonos_tpu_torch.utils.hub import cached_snapshot
+from zonos_tpu_torch.utils.hub import cached_snapshot, repo_dir
 
 logger = logging.getLogger("zonos_tpu_torch")
 
@@ -70,6 +70,18 @@ class SpeakerEmbeddingLDA:
         self.lda = lda
         self.frame_bucket = frame_bucket
 
+    @classmethod
+    def from_pretrained(cls, repo_id: str = REPO_ID, cache_dir=None, device=None) -> "SpeakerEmbeddingLDA":
+        """The tower and LDA checkpoints of ``repo_id`` from the local Hugging
+        Face hub cache (``utils.hub``); nothing is downloaded. Raises
+        FileNotFoundError, naming the directory searched, when they are not there."""
+        found = _cached_checkpoints(repo_id, cache_dir)
+        if found is None:
+            raise FileNotFoundError(f"{repo_id}: no {CKPT_NAME} and {LDA_NAME} under "
+                                    f"{repo_dir(repo_id, cache_dir) / 'snapshots' / '*'} (the port reads the local "
+                                    "hub cache only and downloads nothing)")
+        return cls(ckpt_path=found[0], lda_ckpt_path=found[1], device=device)
+
     def _bucket_pad(self, wav: np.ndarray) -> np.ndarray:
         """Zero-pad (or cut) to a bucketed sample count, as the JAX package does
         so that its jit compiles once per bucket; the same padding here keeps
@@ -101,9 +113,9 @@ class SpeakerEmbeddingLDA:
         return emb.cpu().numpy(), lda_emb.cpu().numpy()
 
 
-def _cached_checkpoints() -> tuple[str, str] | None:
+def _cached_checkpoints(repo_id: str = REPO_ID, cache_dir=None) -> tuple[str, str] | None:
     """The two checkpoints in a local Hugging Face hub cache, if present (``utils.hub``)."""
-    snap = cached_snapshot(REPO_ID, (CKPT_NAME, LDA_NAME))
+    snap = cached_snapshot(repo_id, (CKPT_NAME, LDA_NAME), cache_dir=cache_dir)
     return None if snap is None else (str(snap / CKPT_NAME), str(snap / LDA_NAME))
 
 
