@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port (zonos_tpu_torch) on one NVIDIA card, and
 its sharded paths on four.
 
-    python3 chip_smoke.py             # one card: phases 0-12, then 14
+    python3 chip_smoke.py             # one card: phases 0-12, then 14 and 15
     python3 chip_smoke.py --phase13   # four cards: phase 13 only
 
 Phases; any failure exits non-zero:
@@ -152,7 +152,17 @@ Phases; any failure exits non-zero:
      validate_checkpoint (load PASS, every other row SKIP with its reason,
      exit 0) and read back by from_local (every param bit-equal, 32 greedy
      int8 frames equal to the source's, launches exact), sizes and seconds;
-     profile_components at 86 frames.
+     profile_components at 86 frames;
+ 15. the benchmark (zonos_tpu_torch.tools.bench), in a process of its own
+     (``--phase15``, after phase 14): ``bench.main(["--device", "cuda"])`` at
+     full width and depth with its module constants cut (BENCH_CUTS:
+     requests of 1 s, one timed run per leg, 6 sustained engine requests of
+     1 s), each leg's launch counts set to 0 just before it and read just
+     after it: the JSON line's keys (bench.py's and the card's name and
+     power limit), every number finite and > 0, K1-K3 launches exact on the
+     sequential, pipelined, batch 8, engine and hybrid legs (from their
+     decode steps and prefills) and all three launched in the TTFA leg,
+     every engine request's PCM finite and non-empty.
 With ``--parts``, only the device kernels of one K3, K3s or K4 call at the
 main path's shapes, each with its device time under torch.profiler. With
 ``--pair-streams``, only two flagship requests alone and at once, on the
@@ -160,8 +170,8 @@ default stream and on a stream each.
 Prints one line per kernel check, a ``{"kernels": [...]}`` line (``launches``
 from phase 5, or phase 6 for K4, and ``launches_by_path`` for phases 5, 6, 8,
 10 ("server"), 11 ("lora_int8": the merged model's generate,
-"speculative"), 12 ("tp2", "tp2_hybrid", "dp2": one rank's counts) and 14
-("demo", "export_int8")),
+"speculative"), 12 ("tp2", "tp2_hybrid", "dp2": one rank's counts), 14
+("demo", "export_int8") and 15 ("bench": its six legs summed)),
 a line naming ``--phase13`` and the cards this run sees, the card's name
 and power limit, and last
 ``{"ok": true, "device": {...}}``.
@@ -1930,7 +1940,7 @@ def _phase_server_main(single_rtf: float) -> int:
 
 
 def _child_phase(phase: int, args: list, marker: str) -> dict:
-    """A phase in a child process (phases 10-12 and 14): its timings are not
+    """A phase in a child process (phases 10-12, 14 and 15): its timings are not
     raised by the profiler of phase 9, and its threads and CUDA work share
     nothing with this process's. The child's output is passed on line by
     line; it must exit 0. Returns the launch counts it prints after
@@ -2606,12 +2616,15 @@ G2P_ENTRIES, G2P_CODES = 199, 109  # tests/data/g2p_golden.json
 EXPORT_FRAMES = 32  # greedy int8 frames of the exported model against its source's
 
 
-def _expected_int8(steps: list, n_layer: int) -> dict:
+def _expected_int8(steps: list, n_layer: int, attn_layers: int | None = None, prefills: int | None = None) -> dict:
     """K1-K3 launches of int8 decodes of ``steps`` decode steps each: per step
-    in_proj and out_proj per layer and the output heads on K1, one K2 and one
-    K3 per layer; each prefill's last-position heads on K1."""
+    in_proj and out_proj per layer (a Mamba layer's or attention's) and the
+    output heads on K1, one K3 per layer and one K2 per attention layer (all
+    ``n_layer`` unless ``attn_layers`` is given); each prefill's
+    last-position heads on K1 (one per decode unless ``prefills`` is given)."""
     n = sum(steps)
-    return {"int8_matmul": n * (2 * n_layer + 1) + len(steps), "attn_core_int8": n * n_layer,
+    return {"int8_matmul": n * (2 * n_layer + 1) + (len(steps) if prefills is None else prefills),
+            "attn_core_int8": n * (n_layer if attn_layers is None else attn_layers),
             "fused_mlp_int8": n * n_layer, "fused_mlp_int8_split": 0, "int4_matmul": 0}
 
 
@@ -2787,6 +2800,130 @@ def _phase_commands_main() -> int:
     _build.build_all()  # built by the parent: finds every library
     counts = _phase_commands(_card_line())
     print(PHASE14_RESULT, json.dumps(counts), flush=True)
+    return 0
+
+
+# ---------------------------------------------------------------------------
+# Phase 15: the benchmark (zonos_tpu_torch.tools.bench)
+# ---------------------------------------------------------------------------
+
+PHASE15_RESULT = "phase15 result:"
+# the bench's module constants, cut so that the phase fits the default run:
+# requests of 1 s, one timed run per leg, 6 sustained engine requests of 1 s
+BENCH_CUTS = {"SECONDS": 1.0, "N_RUNS": 1, "HYBRID_RUNS": 1, "ENGINE_SECONDS": 1.0, "ENGINE_REQUESTS": 6}
+
+
+def _phase_bench(card: str, device: str = "cuda") -> dict:
+    """``bench.main(["--device", device])`` with ``BENCH_CUTS``, each leg
+    wrapped so that its launch counts are set to 0 just before it and read
+    just after it. Checks the JSON line's keys, every number finite and > 0,
+    K1-K3's launches exact on every leg but the TTFA one (K1-K3 launched
+    there), and every engine request's PCM finite and non-empty. On the CPU
+    (a rehearsal at ``ZONOS_BENCH_PRESET=tiny``, where no kernel runs) the
+    launch counts are not checked. Returns the legs' launch counts summed."""
+    import contextlib
+    import io
+
+    from zonos_tpu_torch import config as C
+    from zonos_tpu_torch.tools import bench
+
+    for var in ("ZONOS_BENCH_PRESET", "ZONOS_BENCH_DENSE", "ZONOS_BENCH_BUDGET_S", "ZONOS_BENCH_COMPONENTS"):
+        os.environ.pop(var, None)
+    if device == "cpu":
+        os.environ["ZONOS_BENCH_PRESET"] = "tiny"
+    wrappers = _kernel_wrappers()
+    legs = {}
+
+    def tap(name, fn):
+        def leg(*args, **kwargs):
+            for w in wrappers:
+                w.launches = 0
+            out = fn(*args, **kwargs)
+            legs[name] = (out, {w.__name__: w.launches for w in wrappers})
+            return out
+        return leg
+
+    saved = {name: getattr(bench, name) for name in (*BENCH_CUTS, *bench.LEGS)}
+    for name, value in BENCH_CUTS.items():
+        setattr(bench, name, value)
+    for name in bench.LEGS:
+        setattr(bench, name, tap(name, saved[name]))
+    buf = io.StringIO()
+    t = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = bench.main(["--device", device])
+    finally:
+        for name, value in saved.items():
+            setattr(bench, name, value)
+    seconds = time.perf_counter() - t
+    out = buf.getvalue()
+    print(out, end="", flush=True)
+    lines = [line for line in out.splitlines() if line.startswith("{")]
+    print(f"phase15 bench: exit {rc}, {seconds:.1f} s, card: {card}", flush=True)
+    if rc != 0 or len(lines) != 1:
+        _fail(f"phase 15: bench exit {rc}, {len(lines)} JSON lines")
+    result = json.loads(lines[0])
+    keys = ["metric", "value", "unit", "vs_baseline", "extra"]
+    extra_keys = [*bench.EXTRA_KEYS, "card", "power_limit_w"]
+    if list(result) != keys or list(result["extra"]) != extra_keys or result["metric"] != bench.METRIC:
+        _fail(f"phase 15: the JSON line's keys {list(result)}, extra {list(result['extra'])}")
+    numbers = {"value": result["value"], "vs_baseline": result["vs_baseline"],
+               **{k: result["extra"][k] for k in bench.EXTRA_KEYS}}
+    if device == "cuda":
+        numbers["power_limit_w"] = result["extra"]["power_limit_w"]
+    bad = {k: v for k, v in numbers.items() if not (isinstance(v, (int, float)) and np.isfinite(v) and v > 0)}
+    if bad or not result["extra"]["card"]:
+        _fail(f"phase 15: numbers not finite and > 0: {bad}; card {result['extra']['card']!r}")
+
+    if device == "cuda":
+        cfg, hcfg = C.zonos_v01_transformer_config(), C.zonos_v01_hybrid_config()
+    else:
+        cfg, hcfg = C.tiny_transformer_config(), C.tiny_hybrid_config()
+    n_attn = len(hcfg.backbone.attn_layer_idx)
+    total = {w.__name__: 0 for w in wrappers}
+    for name in bench.LEGS:
+        out_leg, counts = legs[name]
+        for k, v in counts.items():
+            total[k] += v
+        steps = out_leg.get("decode_steps")
+        prefills = len(steps) if steps else None
+        if name == "engine":
+            stats = out_leg["stats"]
+            steps, prefills = [stats["steps"]], stats["prefills"]
+            wavs = out_leg["wavs"]
+            bad = [i for i, w in enumerate(wavs) if w.size == 0 or not np.isfinite(w).all()]
+            print("phase15 engine requests:", json.dumps({"returned": len(wavs), "samples": [int(w.size) for w in wavs],
+                                                          "stats": stats}), flush=True)
+            if len(wavs) != BENCH_CUTS["ENGINE_REQUESTS"] or bad:
+                _fail(f"phase 15: the engine returned {len(wavs)} requests, empty or non-finite PCM in {bad}")
+        expected = None
+        if name == "hybrid":
+            expected = _expected_int8(steps, hcfg.backbone.n_layer, n_attn)
+        elif steps is not None:
+            expected = _expected_int8(steps, cfg.backbone.n_layer, prefills=prefills)
+        print(f"phase15 {name} launches:", json.dumps(counts), "expected:", json.dumps(expected),
+              "decode steps:", json.dumps(steps), "prefills:", prefills, flush=True)
+        if device != "cuda":
+            continue
+        if expected is not None and counts != expected:
+            _fail(f"phase 15 {name}: launch counts {counts} != expected {expected}")
+        if expected is None and not all(counts[k] > 0 for k in ("int8_matmul", "attn_core_int8", "fused_mlp_int8")):
+            _fail(f"phase 15 {name}: K1-K3 not all launched: {counts}")
+    print(f"phase15 total: {seconds:.1f} s", flush=True)
+    return {"bench": total}
+
+
+def _phase_bench_main() -> int:
+    """``--phase15``: phase 15 in a process of its own (started by
+    ``_child_phase``). Prints the launch counts as its last line."""
+    from zonos_tpu_torch.ops import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.build_all()  # built by the parent: finds every library
+    counts = _phase_bench(_card_line())
+    print(PHASE15_RESULT, json.dumps(counts), flush=True)
     return 0
 
 
@@ -3439,9 +3576,10 @@ def main() -> int:
     train_counts = _child_phase(11, [], PHASE11_RESULT)
     par_counts = _child_phase(12, [], PHASE12_RESULT)
     command_counts = _child_phase(14, [], PHASE14_RESULT)
+    bench_counts = _child_phase(15, [], PHASE15_RESULT)
 
     by_path = {"int8": counts, "int4": facade_counts, "hybrid_int8": hybrid_counts, "server": server_counts,
-               **train_counts, **par_counts, **command_counts}
+               **train_counts, **par_counts, **command_counts, **bench_counts}
 
     def entry(name, source, replaces, rows, launches):
         main_row = rows[0]
@@ -3491,6 +3629,8 @@ if __name__ == "__main__":
         sys.exit(_phase_parallel_main())
     if sys.argv[1:] == ["--phase14"] and torch.cuda.is_available():
         sys.exit(_phase_commands_main())
+    if sys.argv[1:] == ["--phase15"] and torch.cuda.is_available():
+        sys.exit(_phase_bench_main())
     if sys.argv[1:] == ["--phase13"]:
         sys.exit(_phase_multicard_main())
     sys.exit(main())

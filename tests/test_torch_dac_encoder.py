@@ -25,7 +25,9 @@ def _np_params(jcfg, seed=0):
     """JAX-layout params of ``init_dac_params``'s shapes with numpy values:
     conv taps scaled to keep unit gain, random biases and alphas."""
     rng = np.random.default_rng(seed)
-    tree = jax.tree.map(np.asarray, JDAC.init_dac_params(jax.random.key(0), jcfg))
+    # the shapes only: tracing init_dac_params compiles nothing, where a call
+    # compiles each of its random draws on the CPU (~12 s)
+    tree = jax.eval_shape(lambda: JDAC.init_dac_params(jax.random.key(0), jcfg))
 
     def draw(path, v):
         name = jax.tree_util.keystr(path)

@@ -87,7 +87,7 @@ def test_training_modules_import_without_jax_or_optax(module):
     assert out.stdout.startswith("ok")
 
 
-TOOLS_MODULES = ["e2e_demo", "export_checkpoint", "validate_checkpoint", "profile_components", "make_g2p_golden"]
+TOOLS_MODULES = ["e2e_demo", "export_checkpoint", "validate_checkpoint", "profile_components", "make_g2p_golden", "bench"]
 
 
 def test_tools_import_without_jax():

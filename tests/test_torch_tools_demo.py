@@ -35,6 +35,17 @@ from zonos_tpu_torch.tools import e2e_demo, profile_components
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+@pytest.fixture(autouse=True)
+def one_thread():
+    """One torch thread: the tiny models' ops are too small to split, and
+    threads that parallel test workers start on shared cores stall each
+    other's decode loops (the engine's several issuing threads most)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _tiny_dac():
     return TDAC.DACAutoencoder(cfg=DACConfig(**DAC_KW), dtype=torch.float32, frame_bucket=8, device="cpu", seed=3)
 

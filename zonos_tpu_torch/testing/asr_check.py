@@ -33,6 +33,13 @@ def _load_asr():
     global _ASR, _ASR_FAILED
     if _ASR is not None or _ASR_FAILED:
         return _ASR
+    from zonos_tpu_torch.utils.hub import repo_dir
+
+    snapshots = repo_dir(ASR_MODEL) / "snapshots"
+    if not snapshots.is_dir():  # no weights to load: spare the import of transformers (~15 s)
+        logger.info(f"ASR verification unavailable: no {snapshots}")
+        _ASR_FAILED = True
+        return None
     try:
         from transformers import WhisperForConditionalGeneration, WhisperProcessor
 
