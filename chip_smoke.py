@@ -4,6 +4,7 @@ its sharded paths on four.
 
     python3 chip_smoke.py             # one card: phases 0-12, then 14 and 15
     python3 chip_smoke.py --phase13   # four cards: phase 13 only
+    python3 chip_smoke.py --phase16   # four cards: phase 16 only (the serving fleet)
 
 Phases; any failure exits non-zero:
   0. the card: name and power limit (nvidia-smi), TF32 off for every f32 compare;
@@ -18,10 +19,12 @@ Phases; any failure exits non-zero:
      and its yardstick are timed again after a flush that reads the same
      256 MB (K5), which leaves clean lines in the L2; each also at one tp =
      2 rank's and one tp = 4 rank's shard shapes; K3, K3s and K4 give
-     bit-equal outputs on two calls; K1 and K3 at the continuous engine's 16
-     rows and K2 over its cache (16 rows of 3328 slots, a dead span of its
-     own length per row, read through a 1024-slot attend view); then K1 and
-     K3 called from two host threads at once, 200 calls each at B 2 and 16,
+     bit-equal outputs on two calls; K1, K3 and K4 at 16, 24 and 32 rows (the
+     8- and 16-slot engines' 16 and 32 rows: one launch) and at 40 (two
+     launches of 32 and 8 rows), and K2 over the engine's cache (16 rows of
+     3328 slots, a dead span of its own length per row, read through a
+     1024-slot attend view); then K1 and
+     K3 called from two host threads at once, 200 calls each at B 2, 16 and 32,
      one thread on a stream of its own: every output bit-equal to the same
      call made alone, launch counts exact;
   3. the streaming probes K5/K6: one int8 [16384, 8192] array summed once by
@@ -107,7 +110,7 @@ Phases; any failure exits non-zero:
  12. data and tensor parallelism on torch.distributed, in a process of its
      own (``--phase12``, after phase 11), ranks spawned on the one card over
      gloo (the backend and world printed on a line of their own): tp = 2 on
-     the flagship at full depth, int8 weights and KV, 86 frames at cfg 2.0
+     the flagship at full depth, int8 weights and KV, 43 frames at cfg 2.0
      greedy then min-p 0.1, against the one-device int8 generate on the
      same seeded weights run before the ranks start (the tp ranks' codes
      identical in every frame, first-step logits correlation >= 0.999,
@@ -163,6 +166,37 @@ Phases; any failure exits non-zero:
      sequential, pipelined, batch 8, engine and hybrid legs (from their
      decode steps and prefills) and all three launched in the TTFA leg,
      every engine request's PCM finite and non-empty.
+ 16. (not run by default: ``--phase16`` on a machine with four cards, which
+     raises with fewer) the serving fleet of docs/DEPLOYMENT.md. On card 0,
+     in this process, the flagship (seeded, int8) at 32 decode rows: a
+     continuous engine of 16 slots (16 requests of 1-2 s at once and 2 more
+     that join mid-epoch as slots free, ``JoinTap``) beside one of 8 slots on
+     the same 18 requests (ms per step, audio s per wall s), the 16-slot
+     engine's greedy codes against EngineReference (its decode at 32 rows),
+     the dynamic batcher at max_batch 16 (one batch of 16 in bf16 KV: no
+     K2), K1-K3 launches exact on each. Then, in a temporary working
+     directory holding the flagship as a reference checkpoint and a complete
+     configmodel.txt, four ``python -m zonos_tpu_torch.serving.server
+     --warmup`` processes, backend i with CUDA_VISIBLE_DEVICES=i,
+     ZONOS_BATCHING=1 and ZONOS_MAX_BATCH=16 (start s each; nvidia-smi must
+     list them on four cards), and ``python -m
+     zonos_tpu_torch.serving.router`` over them. Through the router: /health
+     and /router_stats, POST /speakers and /lexicon reaching 4 backends; one
+     fixed-seed request (an inline voice) on each backend in turn,
+     bit-equal; 64 requests of 1-4 s naming the uploaded voice from 64
+     threads (every answer 200 and non-empty, each backend serving its share
+     by its /metrics; audio s per wall s beside 16 sent to backend 0 alone);
+     /stream through the router against direct (time to the first bytes,
+     bytes equal); an 880-character text (3 chunks) to /generate and /stream
+     through the router and direct at once (bit-equal, at least the gaps
+     long); the router's /metrics equal to ``aggregate_metrics`` of the four
+     pages; backend 3 SIGKILLed while it holds requests of a burst of 32
+     (only its requests fail, with the router's 502 naming it; it is
+     quarantined); then shutdown (nvidia-smi lists none of the pids) and
+     the shared directory (every cached embedding loads, every uploaded wav
+     parses, no temporary file left, the wav paths the servers named
+     distinct). Every client call has a timeout. With
+     ``--phase16 --rehearse-on-one-card`` the four backends share card 0.
 With ``--parts``, only the device kernels of one K3, K3s or K4 call at the
 main path's shapes, each with its device time under torch.profiler. With
 ``--pair-streams``, only two flagship requests alone and at once, on the
@@ -172,14 +206,15 @@ from phase 5, or phase 6 for K4, and ``launches_by_path`` for phases 5, 6, 8,
 10 ("server"), 11 ("lora_int8": the merged model's generate,
 "speculative"), 12 ("tp2", "tp2_hybrid", "dp2": one rank's counts), 14
 ("demo", "export_int8") and 15 ("bench": its six legs summed)),
-a line naming ``--phase13`` and the cards this run sees, the card's name
-and power limit, and last
+lines naming ``--phase13`` and ``--phase16`` and the cards this run sees,
+the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import os
 import shutil
@@ -288,7 +323,8 @@ def _k1_case(M, gen, flush, read_flush, b, k, n, pad_rows16, quantize_int8, tag=
     library = lambda: torch.matmul(x, w_bf16)  # noqa: E731
     row = {
         "case": f"{tag}B={b} {k}->{n}", "max_abs_err": err.max().item(),
-        "cluster": M.int8_matmul_plan(b, k, n, sms=M._sm_count(x.device)).cluster,
+        "cluster": M.int8_matmul_plan(min(b, M.MAX_ROWS), k, n, sms=M._sm_count(x.device)).cluster,
+        "launches_per_call": len(M._row_blocks(b)),
         "ms": _time_ms(kernel, flush),
         "plain_ms": _time_ms(lambda: M.int8_matmul_plain(x, w["q"], w["s"]), flush),
         # yardstick: a bf16 matmul against the pre-dequantized weight (twice the weight bytes)
@@ -306,7 +342,9 @@ def _k1_cases(gen, flush, read_flush):
     from zonos_tpu_torch.ops.quant import pad_rows16, quantize_int8
 
     rows = []
-    for b in (2, 16):
+    # the decode batch, the 8-slot engine's 16 rows, 24, the 16-slot engine's
+    # 32 (one launch) and 40 (two launches: 32 rows, then 8)
+    for b in (2, 16, 24, 32, 40):
         # in_proj, out_proj, and the int8 heads in the port's layout (rows padded to 16 bytes)
         for k, n in ((2048, 3072), (2048, 2048), (2048, 9225)):
             rows.append(_k1_case(M, gen, flush, read_flush, b, k, n, pad_rows16, quantize_int8))
@@ -418,11 +456,14 @@ def _k3_cases(gen, flush, read_flush):
 
     rows = []
     # the flagship MLP (K3 and K3s), the hybrid's Mamba-layer MLP (K3; a tp = 2
-    # rank's flagship MLP too), the flagship MLP at the continuous engine's 16
-    # rows (K3), a tp = 2 rank's Mamba-layer MLP (a tp = 4 rank's flagship MLP
-    # too), and a tp = 4 rank's Mamba-layer MLP
+    # rank's flagship MLP too), the flagship MLP at the 8-slot engine's 16
+    # rows (K3), at 24, at the 16-slot engine's 32 (K3 and K3s) and at 40 (two
+    # fc1 + fc2 pairs), a tp = 2 rank's Mamba-layer MLP (a tp = 4 rank's
+    # flagship MLP too), and a tp = 4 rank's Mamba-layer MLP
     for b, d, f, names in ((2, 2048, 8192, ("K3", "K3s")), (2, 2048, HYBRID_F, ("K3 hybrid",)),
-                           (16, 2048, 8192, ("K3 B16",)), (2, 2048, TP2_F, ("K3 tp2",)),
+                           (16, 2048, 8192, ("K3 B16",)), (24, 2048, 8192, ("K3 B24",)),
+                           (32, 2048, 8192, ("K3 B32", "K3s B32")), (40, 2048, 8192, ("K3 B40",)),
+                           (32, 2048, HYBRID_F, ("K3 hybrid B32",)), (2, 2048, TP2_F, ("K3 tp2",)),
                            (2, 2048, TP4_F, ("K3 tp4",))):
         rows += _k3_shape(M, quantize_int8, gen, flush, read_flush, b, d, f, names)
     return rows
@@ -462,6 +503,7 @@ def _k3_shape(M, quantize_int8, gen, flush, read_flush, b, d, f, names):
             _fail(f"{name}: two calls on the same inputs differ")
         row = {
             "case": f"{name}: B={b} D={d} F={f}", "max_abs_err": err.max().item(),
+            "fc1_fc2_pairs_per_call": len(M._row_blocks(b)),
             "ms": _time_ms(fn, flush), "plain_ms": _time_ms(plain, flush),
             "library_ms": _time_ms(library, flush),
             "ms_read_flush": _time_ms(fn, read_flush), "library_ms_read_flush": _time_ms(library, read_flush),
@@ -475,7 +517,7 @@ def _k3_shape(M, quantize_int8, gen, flush, read_flush, b, d, f, names):
 def _two_thread_check(gen, calls: int = 200):
     """K1 (2048 -> 3072) and K3 (D 2048, F 8192) from two host threads at
     once, the way the server's request threads call them: each thread makes
-    ``calls`` calls of each at B 2 and at B 16 on its own inputs and weights,
+    ``calls`` calls of each at B 2, 16 and 32 on its own inputs and weights,
     one thread on the default stream and the other on a stream of its own.
     Every output must be bit-equal to the same call made alone, and the
     launch counts exact. The wrappers enter the kernel libraries through
@@ -491,7 +533,7 @@ def _two_thread_check(gen, calls: int = 200):
         w1 = quantize_int8(torch.randn((d, n), generator=gen, device="cuda") / d ** 0.5)
         m1 = quantize_int8(torch.randn((d, 2 * f), generator=gen, device="cuda") / d ** 0.5)
         m2 = quantize_int8(torch.randn((f, d), generator=gen, device="cuda") / f ** 0.5)
-        xs = {b: torch.randn((b, d), generator=gen, device="cuda").to(torch.bfloat16) for b in (2, 16)}
+        xs = {b: torch.randn((b, d), generator=gen, device="cuda").to(torch.bfloat16) for b in (2, 16, 32)}
         calls_t = []
         for b, x in xs.items():
             calls_t.append((f"K1 B={b}", lambda x=x, w=w1: M.int8_matmul(x, w["q"], w["s"])))
@@ -524,7 +566,7 @@ def _two_thread_check(gen, calls: int = 200):
     if errors:
         _fail(f"phase 2 two threads: {errors}")
     counts = {"int8_matmul": M.int8_matmul.launches, "fused_mlp_int8": M.fused_mlp_int8.launches}
-    expected = {"int8_matmul": 2 * calls * 2, "fused_mlp_int8": 2 * calls * 2}
+    expected = {"int8_matmul": 2 * calls * 3, "fused_mlp_int8": 2 * calls * 3}
     differ = {}
     for t in range(2):
         for i, (name, _fn) in enumerate(work[t]):
@@ -544,12 +586,14 @@ def _k4_cases(gen, flush, read_flush):
 
     rows = []
     # in_proj, out_proj, fc1 and fc2 of a flagship layer at the decode batch,
-    # and in_proj at the largest batch K4 takes
-    # then the hybrid's Mamba in_proj, out_proj (and fc2) and its Mamba-layer fc1
-    # and a tp = 4 rank's shards of the flagship layer
+    # in_proj at 16 and 24 rows, the four at 32 (one launch), in_proj at 40
+    # (two launches), then the hybrid's Mamba in_proj, out_proj (and fc2) and
+    # its Mamba-layer fc1, and a tp = 4 rank's shards of the flagship layer
     shapes = (("", 2, 2048, 3072), ("", 2, 2048, 2048), ("", 2, 2048, 16384), ("", 2, 8192, 2048),
-              ("", 16, 2048, 3072), *(("hybrid ", 2, k, n) for k, n in HYBRID_K4),
-              *(("tp4 ", 2, k, n) for k, n in TP4_K4))
+              ("", 16, 2048, 3072), ("", 24, 2048, 3072),
+              *(("", 32, k, n) for k, n in ((2048, 3072), (2048, 2048), (2048, 16384), (8192, 2048))),
+              ("", 40, 2048, 3072), ("hybrid ", 32, 2048, 8512),
+              *(("hybrid ", 2, k, n) for k, n in HYBRID_K4), *(("tp4 ", 2, k, n) for k, n in TP4_K4))
     for tag, b, k, n in shapes:
         x = torch.randn((b, k), generator=gen, device="cuda").to(torch.bfloat16)
         w = quantize_int4(torch.randn((k, n), generator=gen, device="cuda") / k ** 0.5)
@@ -571,7 +615,8 @@ def _k4_cases(gen, flush, read_flush):
         library = lambda: torch.matmul(x, w_bf16)  # noqa: E731
         row = {
             "case": f"{tag}B={b} {k}->{n}", "max_abs_err": err.max().item(),
-            "cluster": M.int4_matmul_plan(b, k, n, 128, sms=M._sm_count(x.device)).cluster,
+            "cluster": M.int4_matmul_plan(min(b, M.MAX_ROWS), k, n, 128, sms=M._sm_count(x.device)).cluster,
+            "launches_per_call": len(M._row_blocks(b)),
             "ms": _time_ms(kernel, flush),
             "plain_ms": _time_ms(lambda: M.int4_matmul_plain(x, w["q4"], w["s4"]), flush),
             # yardstick: a bf16 matmul against the pre-dequantized weight (4x the weight bytes)
@@ -1311,9 +1356,10 @@ def _wav(data: bytes) -> tuple[int, np.ndarray]:
         return w.getframerate(), np.frombuffer(w.readframes(w.getnframes()), "<i2")
 
 
-def _parallel(fn, args_list) -> list:
-    """fn(*args) for each args on a thread of its own; results in order; an
-    exception on any thread fails the run."""
+def _parallel(fn, args_list, timeout: float | None = None, phase: str = "phase 10") -> list:
+    """fn(*args) for each args on a thread of its own, all started at once;
+    results in order. An exception on any thread fails the run, and so
+    does, with a ``timeout``, a thread still running after it."""
     out, errors = [None] * len(args_list), []
 
     def run(i, args):
@@ -1322,17 +1368,20 @@ def _parallel(fn, args_list) -> list:
         except BaseException as e:  # noqa: BLE001  reported below
             errors.append(repr(e))
 
-    threads = [threading.Thread(target=run, args=(i, a)) for i, a in enumerate(args_list)]
+    threads = [threading.Thread(target=run, args=(i, a), daemon=timeout is not None) for i, a in enumerate(args_list)]
     for t in threads:
         t.start()
+    end = None if timeout is None else time.perf_counter() + timeout
     for t in threads:
-        t.join()
+        t.join(timeout=None if end is None else max(0.0, end - time.perf_counter()))
+    if any(t.is_alive() for t in threads):
+        _fail(f"{phase}: {sum(t.is_alive() for t in threads)} calls still running after {timeout:.0f} s")
     if errors:
-        _fail(f"phase 10: {errors}")
+        _fail(f"{phase}: {errors}")
     return out
 
 
-def _greedy_parity(model, eng, max_new_tokens: int | None = None) -> dict:
+def _greedy_parity(model, eng, max_new_tokens: int | None = None, label: str = "phase10") -> dict:
     """Greedy codes of the continuous engine ``eng`` (2·slots rows) on
     ``model``'s device; every gate is exact:
     - a 1-slot engine (2 rows) per request against generate alone (2 rows),
@@ -1345,7 +1394,9 @@ def _greedy_parity(model, eng, max_new_tokens: int | None = None) -> dict:
     at 2 rows and at the engine's rows, and the share of generate's 2-row picks that the
     engine's arithmetic makes too (teacher forcing): K1's and K3's 2-row
     plans, and the int8 q of a 16-row prefill, move near-tied picks of
-    random weights. ``max_new_tokens`` caps the requests (a short run on the CPU)."""
+    random weights. ``max_new_tokens`` caps the requests (a short run on the CPU);
+    ``label`` names the phase in what it prints."""
+    tag = label.replace("phase", "phase ")
     from zonos_tpu_torch.ops.sampling import SamplingParams
     from zonos_tpu_torch.runtime.generate import generate
     from zonos_tpu_torch.serving.batcher import DynamicBatcher, TTSRequest
@@ -1393,9 +1444,9 @@ def _greedy_parity(model, eng, max_new_tokens: int | None = None) -> dict:
                 one.close()
             gate.append({"frames": int(refs2[i].shape[-1]), "engine_frames": int(tap.of(req).shape[-1]),
                          "first_differing_frame": first_diff(refs2[i], tap.of(req))})
-        print("phase10 greedy codes, 1-slot engine vs generate (gate):", json.dumps(gate), flush=True)
+        print(f"{label} greedy codes, 1-slot engine vs generate (gate):", json.dumps(gate), flush=True)
         if any(p["first_differing_frame"] is not None for p in gate):
-            _fail(f"phase 10: greedy codes of a 1-slot engine differ from generate's: {gate}")
+            _fail(f"{tag}: greedy codes of a 1-slot engine differ from generate's: {gate}")
 
         # the three at once in eng; then, in a fresh engine of eng's shapes,
         # the first again joining behind a longer request
@@ -1420,7 +1471,7 @@ def _greedy_parity(model, eng, max_new_tokens: int | None = None) -> dict:
         finally:
             mid.close()
         if eng.stats["rolled_steps"] != rolled or mid.stats["rolled_steps"]:
-            _fail("phase 10: a KV roll during the greedy requests: EngineReference assumes none")
+            _fail(f"{tag}: a KV roll during the greedy requests: EngineReference assumes none")
         ref = EngineReference(model, eng)
         wide = []
         for i, r in enumerate(reqs + [late]):
@@ -1430,10 +1481,10 @@ def _greedy_parity(model, eng, max_new_tokens: int | None = None) -> dict:
                          "vs_generate_2_rows": first_diff(refs2[i if i < 3 else 0], got),
                          "vs_generate_engine_rows": first_diff(reference(r, 2 * eng.slots), got) if i < 3 else None,
                          "generate_2_rows_forced": ref.forced(r, refs2[i], j) if i < 3 else None})
-    print(f"phase10 greedy codes, {eng.slots}-slot engine vs EngineReference (gate), vs generate at 2 and at "
+    print(f"{label} greedy codes, {eng.slots}-slot engine vs EngineReference (gate), vs generate at 2 and at "
           f"{2 * eng.slots} rows:", json.dumps(wide), flush=True)
     if any(p["vs_reference"] is not None for p in wide) or not wide[-1]["join_step"] > 0:
-        _fail(f"phase 10: greedy codes of the {eng.slots}-slot engine differ from EngineReference's, "
+        _fail(f"{tag}: greedy codes of the {eng.slots}-slot engine differ from EngineReference's, "
               f"or the late request did not join mid-epoch: {wide}")
     return {"one_slot_engine": gate, "eight_slot_engine": wide}
 
@@ -2274,7 +2325,9 @@ def _phase_train_main() -> int:
 # ---------------------------------------------------------------------------
 
 PHASE12_RESULT = "phase12 result:"
-PAR_FRAMES, PAR_HYBRID_FRAMES = 86, 32
+# tp 2 at full depth over gloo takes ~157 ms a frame: 43 frames keep the
+# default run inside its 1,200 s on a slow host
+PAR_FRAMES, PAR_HYBRID_FRAMES = 43, 32
 WARM_FRAMES = 8  # a warm-up generate before each timed one
 
 
@@ -3425,6 +3478,641 @@ def _phase_multicard_main() -> int:
 
 
 # ---------------------------------------------------------------------------
+# Phase 16: the serving fleet of docs/DEPLOYMENT.md (four cards)
+# ---------------------------------------------------------------------------
+
+FLEET_WORLD = 4
+FLEET_SLOTS = 16  # ZONOS_MAX_BATCH of DEPLOYMENT.md's throughput mode: 32 decode rows with CFG
+# SkyrimNet-like NPC lines of 1-4 s (86-340 frames at 2 + 6.5 per character)
+FLEET_LINES = [
+    "Stay awhile.", "Who goes there?", "Farewell, friend.", "The inn is warm tonight.",
+    "Watch the road, traveler.", "The market opens at first light.", "I used to be an adventurer like you.",
+    "Have you heard the news from Whiterun?", "Bring me three wolf pelts for the coin.",
+    "Do not trust the merchant by the docks.", "My sword is yours, if the price is right.",
+    "Snow falls on the pass, so travel at dawn.", "Keep your voice down, the walls have ears.",
+    "The dragon was seen over the western hills.", "The guards at the gate will not let you pass.",
+    "Wolves hunt near the frozen lake after dark, friend.",
+]
+# 880 characters: three chunks of at most 360 (serving/longform.py), 346, 280 and 252
+FLEET_LONGFORM = (
+    "The road to Whiterun runs north along the river, past the old watchtower and the farms where the "
+    "Battle-Born family keeps its cattle. Travelers who leave at dawn reach the city gates before the "
+    "midday bell, but those who linger at the inn find the pass closed by nightfall. The guards say a "
+    "dragon was seen above the western hills three days ago. "
+    "Since then no merchant has dared the mountain road without an escort. If you mean to go, take a "
+    "torch, a warm cloak and enough bread for two days. The innkeeper sells salted meat and mead for a "
+    "fair price, and she knows which caves along the way are safe when the snow comes down. "
+    "Do not stray from the path after dark: wolves hunt in packs near the frozen lake, and the bandits "
+    "at the ruined fort take whatever a lone traveler carries. When you reach the city, ask for the "
+    "steward at the great hall, and tell him Riverwood sent you.")
+FLEET_VOICE = "fleet_voice"
+FLEET_REQUEST_S = 600.0  # every client call's timeout: one that runs out fails the phase
+FLEET_START_S = 900.0  # a backend's start (checkpoint, int8, warm-up) and the router's
+
+
+def _fleet_http(url: str, body=None, timeout: float = FLEET_REQUEST_S):
+    """(status, headers, bytes) of one request; an error status is returned,
+    a refused connection or a timeout raises."""
+    import urllib.error
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(url, data=data, method="GET" if body is None else "POST")
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, dict(r.headers), r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, dict(e.headers), e.read()
+
+
+def _fleet_ok(url: str, body=None, timeout: float = FLEET_REQUEST_S) -> tuple[dict, bytes]:
+    code, headers, data = _fleet_http(url, body, timeout)
+    if code != 200:
+        _fail(f"phase 16: {url} answered {code}: {data[:300]!r}")
+    return headers, data
+
+
+def _fleet_stream(base: str, body) -> tuple[float, bytes]:
+    """Time to the first PCM bytes of a /stream and all its bytes."""
+    import http.client
+    import urllib.parse
+
+    u = urllib.parse.urlparse(base)
+    conn = http.client.HTTPConnection(u.hostname, u.port, timeout=FLEET_REQUEST_S)
+    try:
+        t = time.perf_counter()
+        conn.request("POST", "/stream", json.dumps(body))
+        resp = conn.getresponse()
+        if resp.status != 200 or resp.getheader("X-PCM-Format") != "s16le-mono":
+            _fail(f"phase 16: {base}/stream answered {resp.status}: {resp.read()[:300]!r}")
+        head = resp.read(2)
+        ttfa = time.perf_counter() - t
+        return ttfa, head + resp.read()
+    finally:
+        conn.close()
+
+
+# every client thread of phase 16 joined within a request's timeout, or the phase fails
+_fleet_threads = functools.partial(_parallel, timeout=FLEET_REQUEST_S + 60, phase="phase 16")
+
+
+def _generate_200(base: str, body) -> dict:
+    """One /generate that must answer 200 with a non-empty 44.1 kHz WAV."""
+    t = time.perf_counter()
+    headers, data = _fleet_ok(base + "/generate", body)
+    rate, pcm = _wav(data)
+    if rate != 44100 or pcm.size == 0:
+        _fail(f"phase 16: {base}/generate gave {pcm.size} samples at {rate} Hz")
+    return {"audio_s": pcm.size / rate, "wall_s": time.perf_counter() - t, "bytes": data,
+            "meta": json.loads(headers.get("X-Zonos-Meta", "{}"))}
+
+
+def _metric(page: str, series: str) -> float:
+    for line in page.splitlines():
+        if line.startswith(series + " "):
+            return float(line.rsplit(" ", 1)[1])
+    return 0.0
+
+
+GENERATE_200 = 'zonos_requests_total{endpoint="/generate",status="200"}'
+
+
+def _fleet_wide_paths(card: str, model, on_card: bool = True) -> dict:
+    """Step 1 of phase 16, in this process: the 32-row paths of a server in
+    throughput mode on one card. The continuous engine at 16 slots (16
+    requests of 1-2 s at once, 2 more that join mid-epoch as slots free),
+    then the same through an engine of 8 slots, each timed; the 16-slot
+    engine's greedy codes against EngineReference (its decode at 32 rows);
+    the dynamic batcher at max_batch 16 (16 requests in one generate_audio:
+    bf16 KV, so K2 never launches). K1-K3 launch counts exact on every path
+    (``on_card``)."""
+    from zonos_tpu_torch.ops import cuda_attention as A
+    from zonos_tpu_torch.ops import cuda_matmul as M
+    from zonos_tpu_torch.serving.batcher import DynamicBatcher, TTSRequest
+    from zonos_tpu_torch.serving.continuous import ContinuousEngine
+    from zonos_tpu_torch.serving.pipeline import prepare_generation_params
+
+    kernels = (M.int8_matmul, A.attn_core_int8, M.fused_mlp_int8)
+    n_layer = model.config.backbone.n_layer
+
+    def reset():
+        for k in kernels:
+            k.launches = 0
+
+    def check(label, steps, prefills, k2=True):
+        got = {k.__name__: k.launches for k in kernels}
+        want = {"int8_matmul": steps * (2 * n_layer + 1) + prefills, "attn_core_int8": steps * n_layer if k2 else 0,
+                "fused_mlp_int8": steps * n_layer}
+        print(f"phase16 {label} launches:", json.dumps(got), "expected:", json.dumps(want), flush=True)
+        if on_card and got != want:
+            _fail(f"phase 16 {label}: launch counts {got} != expected {want}")
+        return got
+
+    def request(text, seed):
+        n = prepare_generation_params(text, randomize_seed=False).max_new_tokens
+        return TTSRequest(text=text, seed=seed, max_new_tokens=n)
+
+    short = [t for t in FLEET_LINES if prepare_generation_params(t, randomize_seed=False).max_new_tokens <= 172]
+    texts = [short[i % len(short)] for i in range(FLEET_SLOTS)]  # 1-2 s each
+    result = {"card": card}
+
+    def burst(eng):
+        """16 requests at once, then 2 that queue once the epoch has run
+        and join as slots free: (wall s, audio s, stats delta)."""
+        late_reqs = [request(FLEET_LINES[i], 700 + i) for i in range(2)]
+        late = []
+
+        def join_late():
+            t = time.perf_counter()
+            while eng.stats["steps"] == before["steps"] and time.perf_counter() - t < 300:
+                time.sleep(0.01)
+            return _fleet_threads(eng.submit, [(r,) for r in late_reqs])
+
+        with JoinTap() as joins:  # open before the warm-up: the burst may join the warm-up's epoch
+            eng.submit(request(FLEET_LINES[0], 1))  # warm-up: the first epoch's one-time costs
+            before = dict(eng.stats)
+            reset()
+            t = time.perf_counter()
+            outs = _fleet_threads(lambda f, *a: f(*a), [(eng.submit, request(text, 600 + i)) for i, text in
+                                                         enumerate(texts)] + [(lambda: late.extend(join_late()),)])
+            wall = time.perf_counter() - t
+        outs = outs[:-1] + late
+        late_steps = [joins.of(r, model.device) for r in late_reqs]
+        if len(outs) != FLEET_SLOTS + 2 or not all(w.size > 0 for w, _sr in outs) or min(late_steps) <= 0:
+            _fail(f"phase 16: an engine of {eng.slots} slots answered {len(outs)} requests, or one was empty, "
+                  f"or the late two joined at steps {late_steps}")
+        delta = {k: eng.stats[k] - before[k] for k in before if isinstance(before[k], int)}
+        delta["late_join_steps"] = late_steps
+        return wall, sum(w.size / sr for w, sr in outs), delta
+
+    for slots in (FLEET_SLOTS, FLEET_SLOTS // 2):
+        eng = ContinuousEngine(model, slots=slots)
+        try:
+            wall, audio, delta = burst(eng)
+            label = f"engine {slots} slots"
+            counts = check(label, delta["steps"], delta["prefills"])
+            if delta["requests"] != FLEET_SLOTS + 2 or delta["slot_recycles"] < 2:
+                _fail(f"phase 16 {label}: {delta}: every request, 2 of them in recycled slots, expected")
+            row = {"slots": slots, "rows": 2 * slots, "requests": delta["requests"], "steps": delta["steps"],
+                   "prefills": delta["prefills"], "late_join_steps": delta["late_join_steps"],
+                   "slot_recycles": delta["slot_recycles"], "wall_s": wall, "audio_s": audio,
+                   "audio_s_per_wall_s": audio / wall, "ms_per_step": wall * 1e3 / max(delta["steps"], 1),
+                   "launches": counts, "card": card}
+            print(f"phase16 {label}:", json.dumps(row), flush=True)
+            result[f"engine_{slots}"] = row
+            if slots == FLEET_SLOTS:
+                result["greedy_parity"] = _greedy_parity(model, eng, label="phase16")
+        finally:
+            eng.close()
+
+    batcher = DynamicBatcher(model, max_batch=FLEET_SLOTS, window_ms=5000)  # forms once all 16 are in
+    steps_log = []
+    generate_audio = model.generate_audio
+
+    def recorded(*args, **kw):
+        stats = {}
+        out = generate_audio(*args, stats=stats, **kw)
+        steps_log.append(stats["decode_steps"])
+        return out
+
+    model.generate_audio = recorded
+    reset()
+    try:
+        t = time.perf_counter()
+        outs = _fleet_threads(lambda i: batcher.submit(request(texts[i], 800 + i)), [(i,) for i in range(FLEET_SLOTS)])
+        wall = time.perf_counter() - t
+        stats = dict(batcher.stats)
+    finally:
+        del model.generate_audio
+        batcher.close()
+    if stats["batches"] != 1 or stats["requests"] != FLEET_SLOTS or not all(w.size > 0 for w, _sr in outs):
+        _fail(f"phase 16: the dynamic batcher at max_batch {FLEET_SLOTS}: {stats}, one batch of 16 expected")
+    counts = check("dynamic batcher", sum(steps_log), len(steps_log), k2=False)
+    result["batcher"] = {"stats": stats, "steps": sum(steps_log), "wall_s": wall, "launches": counts,
+                         "audio_s_per_wall_s": sum(w.size / sr for w, sr in outs) / wall, "card": card}
+    print("phase16 dynamic batcher:", json.dumps(result["batcher"]), flush=True)
+    return result
+
+
+def _compute_pids() -> dict:
+    """pid -> card uuid of every compute process nvidia-smi lists."""
+    out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,gpu_uuid", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60).stdout
+    rows = [line.split(",") for line in out.strip().splitlines() if line.strip()]
+    return {int(r[0]): r[1].strip() for r in rows if len(r) == 2 and r[0].strip().isdigit()}
+
+
+def _memory_used() -> dict:
+    """nvidia-smi's memory.used of every card in MiB, by index."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=index,memory.used", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True, timeout=60).stdout
+    rows = [line.split(",") for line in out.strip().splitlines() if line.strip()]
+    return {int(r[0]): float(r[1]) for r in rows}
+
+
+def _card_nodes(pid: int) -> list:
+    """The card device nodes (/dev/nvidia<N>) a process holds open: the
+    cards it runs on, where nvidia-smi's pids are another namespace's."""
+    import re
+
+    nodes = set()
+    for fd in os.listdir(f"/proc/{pid}/fd"):
+        try:
+            target = os.readlink(f"/proc/{pid}/fd/{fd}")
+        except OSError:
+            continue
+        if re.fullmatch(r"/dev/nvidia\d+", target):
+            nodes.add(target)
+    return sorted(nodes)
+
+
+def _server_cards(pids: list, devices: list, before: dict) -> dict:
+    """Each server's card, by the first evidence that attributes it:
+    nvidia-smi's compute apps (uuid by pid), else the one card device node
+    each process holds open, else (nvidia-smi's pids in another namespace,
+    every node open) the card's memory.used, risen by 1 GiB or more since
+    before the servers started on every card of ``devices`` (each server
+    was started with CUDA_VISIBLE_DEVICES of its own). Fails unless the
+    servers are on as many distinct cards as ``devices`` names."""
+    apps = _compute_pids()
+    listed = {pid: apps.get(pid) for pid in pids}
+    nodes = {pid: _card_nodes(pid) for pid in pids}
+    after = _memory_used()
+    print("phase16 nvidia-smi compute apps:", json.dumps(apps), "memory.used MiB before and after the start:",
+          json.dumps(before), json.dumps(after), "servers' pids there:", json.dumps(listed),
+          "servers' card nodes:", json.dumps(nodes), flush=True)
+    n_cards = len(set(devices))
+    if None not in listed.values():
+        how, cards = "nvidia-smi compute apps", listed
+    elif all(len(n) == 1 for n in nodes.values()):
+        how, cards = "the card node each holds", {pid: n[0] for pid, n in nodes.items()}
+    else:
+        how, cards = "memory.used by CUDA_VISIBLE_DEVICES", {pid: f"card {d}" for pid, d in zip(pids, devices)}
+        if any(after[d] - before[d] < 1024 for d in set(devices)):
+            _fail(f"phase 16: memory.used {before} -> {after}: not every card of {sorted(set(devices))} took a server")
+    print(f"phase16 servers' cards (by {how}):", json.dumps(cards), flush=True)
+    if len(set(cards.values())) != n_cards:
+        _fail(f"phase 16: the servers {cards} are not on {n_cards} distinct cards")
+    return cards
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _log_tail(path: str, n: int = 30) -> str:
+    with open(path, errors="replace") as f:
+        return "".join(f.readlines()[-n:])
+
+
+def _start_fleet(work: str, devices: list, env_extra: dict) -> dict:
+    """One ``python -m zonos_tpu_torch.serving.server --warmup`` per entry of
+    ``devices`` (its CUDA_VISIBLE_DEVICES), all at once in ``work``, then
+    ``python -m zonos_tpu_torch.serving.router`` over them; returns once
+    every backend answers /health and the router /router_stats."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = {k: v for k, v in os.environ.items() if k not in ("ZONOS_CONTINUOUS", "ZONOS_PLATFORM", "ZONOS_TINY_MODEL")}
+    env.update(env_extra, PYTHONPATH=os.pathsep.join(p for p in (repo, os.environ.get("PYTHONPATH")) if p))
+    fleet = {"procs": [], "logs": [], "urls": [], "start_s": []}
+    t0 = time.perf_counter()
+    for i, dev in enumerate(devices):
+        port = _free_port()
+        log = os.path.join(work, f"backend{i}.log")
+        env_i = dict(env, ZONOS_BATCHING="1", ZONOS_MAX_BATCH=str(FLEET_SLOTS))
+        if dev is not None:
+            env_i["CUDA_VISIBLE_DEVICES"] = str(dev)
+        with open(log, "w") as f:
+            fleet["procs"].append(subprocess.Popen(
+                [sys.executable, "-m", "zonos_tpu_torch.serving.server", "--server", "127.0.0.1", "--port", str(port),
+                 "--warmup"], cwd=work, env=env_i, stdout=f, stderr=subprocess.STDOUT))
+        fleet["logs"].append(log)
+        fleet["urls"].append(f"http://127.0.0.1:{port}")
+    pending = set(range(len(devices)))
+    starts = [None] * len(devices)
+    while pending:
+        for i in sorted(pending):
+            if fleet["procs"][i].poll() is not None:
+                _fail(f"phase 16: backend {i} exited {fleet['procs'][i].returncode}:\n{_log_tail(fleet['logs'][i])}")
+            try:
+                if _fleet_http(fleet["urls"][i] + "/health", timeout=2)[0] == 200:
+                    starts[i] = time.perf_counter() - t0
+                    pending.discard(i)
+            except OSError:
+                pass
+        if time.perf_counter() - t0 > FLEET_START_S:
+            _fail(f"phase 16: backends {sorted(pending)} did not listen within {FLEET_START_S:.0f} s")
+        time.sleep(0.5)
+    fleet["start_s"] = starts
+    rport = _free_port()
+    fleet["router_log"] = os.path.join(work, "router.log")
+    with open(fleet["router_log"], "w") as f:
+        fleet["router"] = subprocess.Popen(
+            [sys.executable, "-m", "zonos_tpu_torch.serving.router", "--port", str(rport), "--cooldown", "3600",
+             *[a for u in fleet["urls"] for a in ("--backend", u)]], cwd=work, env=env, stdout=f,
+            stderr=subprocess.STDOUT)
+    fleet["router_url"] = f"http://127.0.0.1:{rport}"
+    t = time.perf_counter()
+    while True:
+        try:
+            if _fleet_http(fleet["router_url"] + "/router_stats", timeout=2)[0] == 200:
+                break
+        except OSError:
+            pass
+        if fleet["router"].poll() is not None or time.perf_counter() - t > 120:
+            _fail(f"phase 16: the router did not listen:\n{_log_tail(fleet['router_log'])}")
+        time.sleep(0.2)
+    return fleet
+
+
+def _stop_fleet(fleet: dict) -> list:
+    """SIGTERM to the router and every backend still running, SIGKILL after
+    60 s; returns their pids."""
+    procs = [p for p in [fleet.get("router"), *fleet.get("procs", [])] if p is not None]
+    for p in procs:
+        if p.poll() is None:
+            p.terminate()
+    for p in procs:
+        try:
+            p.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait(timeout=60)
+    return [p.pid for p in procs]
+
+
+def _fleet(card: str, work: str, devices: list, env_extra: dict, n_burst: int = 64, n_kill: int = 32,
+           longform_text: str = FLEET_LONGFORM, on_card: bool = True) -> dict:
+    """Steps 2-6 of phase 16: the servers and the router as processes in one
+    working directory, every check through the router; see main()'s
+    docstring. ``devices`` gives each backend's CUDA_VISIBLE_DEVICES (None:
+    the parent's); ``on_card`` adds the checks of nvidia-smi."""
+    from zonos_tpu_torch.audio.io import write_wav
+    from zonos_tpu_torch.serving import longform
+    from zonos_tpu_torch.serving.router import aggregate_metrics
+
+    result = {"card": card, "backends": len(devices)}
+    fleet = {}
+    try:
+        before = _memory_used() if on_card else {}
+        fleet = _start_fleet(work, devices, env_extra)
+        urls, front = fleet["urls"], fleet["router_url"]
+        result["backend_start_s"] = fleet["start_s"]
+        print("phase16 backends started (checkpoint load, int8, warm-up; s):", json.dumps(fleet["start_s"]),
+              f"card: {card}", flush=True)
+        if on_card:
+            result["server_cards"] = list(_server_cards([p.pid for p in fleet["procs"]], devices, before).values())
+
+        # 3. through the router: health, the admin broadcast
+        health = json.loads(_fleet_ok(front + "/health")[1])
+        stats = json.loads(_fleet_ok(front + "/router_stats")[1])
+        if health != {"status": "ok"} or [b["healthy"] for b in stats["backends"]] != [True] * len(urls):
+            _fail(f"phase 16: router health {health}, stats {stats}")
+        import base64
+
+        write_wav(os.path.join(work, "voice.wav"), _voice(10.0, 24000, seed=31), 24000)
+        with open(os.path.join(work, "voice.wav"), "rb") as f:
+            voice_b64 = base64.b64encode(f.read()).decode()
+        upload = json.loads(_fleet_ok(front + "/speakers", {"name": FLEET_VOICE, "wav_base64": voice_b64})[1])
+        lexicon = json.loads(_fleet_ok(front + "/lexicon", {"entries": {"Riverwood": "ˈɹɪvɚwʊd"}})[1])
+        listed = [json.loads(_fleet_ok(u + "/speakers")[1])["speakers"] for u in urls]
+        if upload["backends_ok"] != len(urls) or lexicon["backends_ok"] != len(urls) or \
+                not all(f"uploads/{FLEET_VOICE}" in s for s in listed):
+            _fail(f"phase 16: the broadcast reached {upload}, {lexicon}; speakers {listed}")
+        speaker = upload["results"][0]["speaker"]
+
+        # the same fixed-seed request to each backend in turn, bit-equal: backend
+        # 0 embeds the uploaded voice into the shared cache, the others read it
+        fixed = {"text": FLEET_LINES[4], "seed": 4242, "randomize_seed": False, "speaker": speaker}
+        per_backend = [_generate_200(u, fixed) for u in urls]
+        same = [r["bytes"] == per_backend[0]["bytes"] for r in per_backend]
+        print("phase16 one fixed-seed request on each backend, bit-equal to backend 0's:", same, flush=True)
+        if not all(same) or not all(r["meta"].get("batched") for r in per_backend):
+            _fail(f"phase 16: the fixed-seed request differs across backends: {same}")
+
+        # the burst through the router, and the same work on backend 0 alone
+        def served():
+            return [_metric(_fleet_ok(u + "/metrics")[1].decode(), GENERATE_200) for u in urls]
+
+        before = served()
+        bodies = [{"text": FLEET_LINES[i % len(FLEET_LINES)], "seed": 1000 + i, "randomize_seed": False,
+                   "speaker": speaker} for i in range(n_burst)]
+        t = time.perf_counter()
+        burst = _fleet_threads(lambda b: _generate_200(front, b), [(b,) for b in bodies])
+        burst_s = time.perf_counter() - t
+        per = [a - b for a, b in zip(served(), before)]
+        fleet_rate = sum(r["audio_s"] for r in burst) / burst_s
+        n_alone = n_burst // len(urls)
+        t = time.perf_counter()
+        alone = _fleet_threads(lambda b: _generate_200(urls[0], b), [(b,) for b in bodies[:n_alone]])
+        alone_s = time.perf_counter() - t
+        alone_rate = sum(r["audio_s"] for r in alone) / alone_s
+        result["burst"] = {"requests": n_burst, "wall_s": burst_s, "audio_s": sum(r["audio_s"] for r in burst),
+                           "audio_s_per_wall_s": fleet_rate, "served_per_backend": per,
+                           "backend0_alone": {"requests": n_alone, "wall_s": alone_s, "audio_s_per_wall_s": alone_rate},
+                           "fleet_over_one_backend": fleet_rate / alone_rate, "host_cpus": os.cpu_count(),
+                           "host_load_1m": os.getloadavg()[0], "card": card}
+        print("phase16 burst through the router:", json.dumps(result["burst"]), flush=True)
+        if sum(per) != n_burst or min(per) < n_burst // (2 * len(urls)):
+            _fail(f"phase 16: the router spread {n_burst} requests as {per}")
+
+        # /stream through the router against the same request direct, in turns
+        # (an inline voice: the servers store it under cache/uploads/)
+        write_wav(os.path.join(work, "inline.wav"), _voice(6.0, 24000, seed=32), 24000)
+        with open(os.path.join(work, "inline.wav"), "rb") as f:
+            inline_b64 = base64.b64encode(f.read()).decode()
+        sbody = {"text": FLEET_LINES[6], "seed": 77, "randomize_seed": False, "speaker_wav_base64": inline_b64}
+        turns = [_fleet_stream(base, sbody) for base in (front, urls[0], front, urls[0])]
+        result["stream"] = {"ttfa_router_s": [turns[0][0], turns[2][0]], "ttfa_direct_s": [turns[1][0], turns[3][0]],
+                            "bytes": len(turns[0][1]), "equal": all(t[1] == turns[1][1] for t in turns), "card": card}
+        print("phase16 /stream through the router and direct, in turns:", json.dumps(result["stream"]), flush=True)
+        if not result["stream"]["equal"] or not turns[0][1]:
+            _fail(f"phase 16: /stream through the router and direct differ: {[len(t[1]) for t in turns]} bytes")
+
+        # a long-form request to /generate and /stream, through the router and direct, all at once
+        chunks = longform.chunk_text(longform_text)
+        lbody = {"text": longform_text, "seed": 91, "randomize_seed": False, "speaker": speaker}
+        t = time.perf_counter()
+        via_router = {}
+        routed = [threading.Thread(target=lambda: via_router.update(generate=_generate_200(front, lbody)), daemon=True),
+                  threading.Thread(target=lambda: via_router.update(stream=_fleet_stream(front, lbody)[1]), daemon=True)]
+        for th in routed:
+            th.start()
+        while True:  # the direct pair goes to the backends the router left idle
+            busy = [b["outstanding"] for b in json.loads(_fleet_ok(front + "/router_stats")[1])["backends"]]
+            if sum(busy) >= 2 or not any(th.is_alive() for th in routed) or time.perf_counter() - t > 60:
+                break
+            time.sleep(0.05)
+        idle = [u for u, n in zip(urls, busy) if n == 0] + list(reversed(urls))
+        gen_d, stream_d = _fleet_threads(lambda f: f(), [(lambda: _generate_200(idle[0], lbody),),
+                                                         (lambda: _fleet_stream(idle[1], lbody)[1],)],
+                                         timeout=2 * FLEET_REQUEST_S)
+        for th in routed:
+            th.join(timeout=2 * FLEET_REQUEST_S)
+        if any(th.is_alive() for th in routed) or set(via_router) != {"generate", "stream"}:
+            _fail(f"phase 16: the long-form requests through the router did not both answer: {sorted(via_router)}")
+        lf_s = time.perf_counter() - t
+        gen_r, stream_r = via_router["generate"], via_router["stream"]
+        floor = (len(chunks) - 1) * int(longform.CHUNK_GAP_S * 44100) + len(chunks) * 512  # the gaps, a frame a chunk
+        samples = _wav(gen_r["bytes"])[1].size
+        result["longform"] = {"chars": len(longform_text), "chunks": len(chunks), "audio_s": gen_r["audio_s"],
+                              "stream_bytes": len(stream_r), "wall_s": lf_s, "generate_equal": gen_r["bytes"] ==
+                              gen_d["bytes"], "stream_equal": stream_r == stream_d, "card": card}
+        print("phase16 long-form through the router and direct:", json.dumps(result["longform"]), flush=True)
+        if len(chunks) < 2 or samples < floor or len(stream_r) // 2 < floor or gen_r["bytes"] != gen_d["bytes"] \
+                or stream_r != stream_d:
+            _fail(f"phase 16: long-form {result['longform']}, {samples} samples against a floor of {floor}")
+        paths = [gen_r["meta"].get("path"), gen_d["meta"].get("path")]
+
+        # the router's /metrics: the sum of the backends' pages, read with no traffic between
+        def series(page: str) -> dict:
+            return {line.rpartition(" ")[0]: line.rpartition(" ")[2] for line in page.splitlines()
+                    if line and not line.startswith("#") and 'endpoint="/metrics"' not in line}
+
+        for attempt in range(5):
+            pages = [_fleet_ok(u + "/metrics")[1].decode() for u in urls]
+            fleet_page = _fleet_ok(front + "/metrics")[1].decode()
+            again = [_fleet_ok(u + "/metrics")[1].decode() for u in urls]
+            if [series(p) for p in pages] == [series(p) for p in again]:  # no request still being counted
+                break
+            time.sleep(1.0)
+        want, got = series(aggregate_metrics(pages)), series(fleet_page)
+        differ = sorted(k for k in want.keys() | got.keys() if want.get(k) != got.get(k))
+        print(f"phase16 router /metrics against aggregate_metrics of the backends' pages: {len(got)} series, "
+              f"{len(differ)} differ (a page's own /metrics series left out: each read counts itself)", flush=True)
+        if differ or not got:
+            _fail(f"phase 16: the router's /metrics differs from the backends' sum on {differ[:5]}")
+
+        # 4. a second burst; backend 3 SIGKILLed while it has requests in flight
+        dead = urls[-1]
+        killed = {}
+
+        def killer():
+            t = time.perf_counter()
+            while time.perf_counter() - t < FLEET_REQUEST_S:
+                st = json.loads(_fleet_http(front + "/router_stats", timeout=10)[2])
+                if any(b["url"] == dead and b["outstanding"] > 0 for b in st["backends"]):
+                    fleet["procs"][-1].kill()
+                    killed.update(outstanding=[b["outstanding"] for b in st["backends"] if b["url"] == dead][0],
+                                  after_s=time.perf_counter() - t)
+                    return
+                time.sleep(0.05)
+
+        kbodies = [{"text": FLEET_LINES[i % len(FLEET_LINES)], "seed": 2000 + i, "randomize_seed": False,
+                    "speaker": speaker} for i in range(n_kill)]
+        watch = threading.Thread(target=killer, daemon=True)
+        watch.start()
+        answers = _fleet_threads(lambda b: _fleet_http(front + "/generate", b), [(b,) for b in kbodies])
+        watch.join(timeout=60)
+        failed = [(code, data[:200].decode(errors="replace")) for code, _h, data in answers if code != 200]
+        ok = [_wav(data)[1].size for code, _h, data in answers if code == 200]
+        stats = json.loads(_fleet_ok(front + "/router_stats")[1])
+        health = {b["url"]: b["healthy"] for b in stats["backends"]}
+        result["backend_death"] = {"requests": n_kill, "killed_with_outstanding": killed.get("outstanding"),
+                                   "succeeded": len(ok), "failed": len(failed), "healthy": list(health.values()),
+                                   "card": card}
+        print("phase16 backend 3 killed mid-burst:", json.dumps(result["backend_death"]), flush=True)
+        if not killed or not all(code == 502 and dead in msg for code, msg in failed) or not all(n > 0 for n in ok) \
+                or health[dead] or not all(v for u, v in health.items() if u != dead):
+            _fail(f"phase 16: after the kill: failed {failed[:4]}, healthy {health}, killed {killed}")
+
+        # 6. shutdown, then what the servers left in their shared directory (5.)
+        pids = _stop_fleet(fleet)
+        if on_card:
+            t = time.perf_counter()
+            while set(pids) & set(_compute_pids()) and time.perf_counter() - t < 60:
+                time.sleep(1.0)
+            left = sorted(set(pids) & set(_compute_pids()))
+            alive = [pid for pid in pids if os.path.exists(f"/proc/{pid}")]
+            print("phase16 after the shutdown: nvidia-smi memory.used", json.dumps(_memory_used()),
+                  "compute apps", json.dumps(_compute_pids()), flush=True)
+            if left or alive:
+                _fail(f"phase 16: after the shutdown nvidia-smi lists {left}, processes {alive} remain")
+        import glob
+        import wave
+
+        embeds = glob.glob(os.path.join(work, "cache", "embeds", "**", "*.npz"), recursive=True)
+        uploads = glob.glob(os.path.join(work, "cache", "uploads", "*.wav")) + \
+            glob.glob(os.path.join(work, "speakers", "uploads", "*.wav"))
+        for path in embeds:
+            if not np.isfinite(np.load(path)["data"]).all():
+                _fail(f"phase 16: {path} holds non-finite values")
+        for path in uploads:
+            with wave.open(path) as w:
+                w.readframes(w.getnframes())
+        temps = [os.path.relpath(os.path.join(d, f), work) for d, _s, fs in os.walk(work) for f in fs if ".tmp" in f]
+        outputs = sorted(os.listdir(os.path.join(work, "output_temp")))
+        result["shared_dir"] = {"embeds": len(embeds), "uploads": len(uploads), "temporaries": temps,
+                                "output_dirs": outputs, "wav_paths": paths}
+        print("phase16 shared working directory:", json.dumps(result["shared_dir"]), flush=True)
+        if not embeds or len(uploads) < 2 or temps or None in paths or len(set(paths)) != len(paths):
+            _fail(f"phase 16: the shared directory: {result['shared_dir']}")
+    finally:
+        if fleet:
+            _stop_fleet(fleet)
+    return result
+
+
+PHASE16_EXTRA = "--rehearse-on-one-card"
+
+
+def _phase_fleet_main(one_card: bool = False) -> int:
+    """``--phase16``: the fleet of docs/DEPLOYMENT.md on four cards (step 1 on
+    card 0 in this process, then four servers and the router as processes).
+    Fewer cards raise. With ``--rehearse-on-one-card`` every backend shares
+    card 0: the same checks on a one-card machine, nvidia-smi's naming one card."""
+    need = 1 if one_card else FLEET_WORLD
+    cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if cards < need:
+        raise RuntimeError(f"phase 16 needs {need} cards (one server per card); {cards} visible")
+    from zonos_tpu_torch.conditioning import native_g2p
+    from zonos_tpu_torch.config import zonos_v01_transformer_config
+    from zonos_tpu_torch.models.zonos import Zonos
+    from zonos_tpu_torch.ops import _build
+    from zonos_tpu_torch.serving.app_config import DEFAULT_CONFIG
+    from zonos_tpu_torch.utils.export import save_reference_checkpoint
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    for i, line in enumerate(_card_lines()):
+        print(f"card {i}: {line}", flush=True)
+    card = _card_line()
+    g2p = threading.Thread(target=native_g2p.available)  # g++ beside the nvcc builds: the servers find both built
+    g2p.start()
+    _build.build_all()
+    g2p.join()
+    if not native_g2p.available():
+        _fail("phase 16: the native G2P library did not build")
+    print(f"phase16 build: {time.perf_counter() - t0:.1f} s", flush=True)
+    with tempfile.TemporaryDirectory() as work:
+        ckpt = os.path.join(work, "checkpoint")
+        t = time.perf_counter()
+        seeded = Zonos.from_config(zonos_v01_transformer_config(), seed=0, dtype=torch.bfloat16, device="cuda")
+        save_reference_checkpoint(ckpt, seeded.params, seeded.config)
+        with open(os.path.join(work, "configmodel.txt"), "w") as f:  # complete: no server appends to it
+            for k, v in {**DEFAULT_CONFIG, "PATH_MODEL_TRANSFORMER": ckpt}.items():
+                f.write(f"{k} = {v}\n")
+        print(f"phase16 flagship written as a reference checkpoint: {time.perf_counter() - t:.1f} s", flush=True)
+        wide = _fleet_wide_paths(card, seeded.quantize())
+        del seeded
+        torch.cuda.empty_cache()
+        devices = [0] * FLEET_WORLD if one_card else list(range(FLEET_WORLD))
+        result = _fleet(card, work, devices, {})
+    print(f"phase16 total: {time.perf_counter() - t0:.1f} s", flush=True)
+    print("phase16 result:", json.dumps({"wide_paths": {k: v for k, v in wide.items() if k != "greedy_parity"},
+                                         **result}), flush=True)
+    for i, line in enumerate(_card_lines()):
+        print(f"card {i}: {line}", flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                              "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+# ---------------------------------------------------------------------------
 # Phase 9: the profiler, last
 # ---------------------------------------------------------------------------
 
@@ -3610,6 +4298,9 @@ def main() -> int:
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"phase13: not run by this run; it runs as `python3 chip_smoke.py --phase13` on a machine with "
           f"{MC_WORLD} cards (one rank per card over nccl); this one sees {torch.cuda.device_count()}", flush=True)
+    print(f"phase16: not run by this run; it runs as `python3 chip_smoke.py --phase16` on a machine with "
+          f"{FLEET_WORLD} cards (one server per card behind serving/router.py); this one sees "
+          f"{torch.cuda.device_count()}", flush=True)
     print(f"card: {_card_line()}", flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                               "count": torch.cuda.device_count()}}), flush=True)
@@ -3633,4 +4324,6 @@ if __name__ == "__main__":
         sys.exit(_phase_bench_main())
     if sys.argv[1:] == ["--phase13"]:
         sys.exit(_phase_multicard_main())
+    if sys.argv[1:2] == ["--phase16"] and sys.argv[2:] in ([], [PHASE16_EXTRA]):
+        sys.exit(_phase_fleet_main(one_card=sys.argv[2:] == [PHASE16_EXTRA]))
     sys.exit(main())

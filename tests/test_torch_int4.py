@@ -85,6 +85,37 @@ def test_decode_shaped_int4_takes_k4_wrapper_without_a_launch():
     assert TM.int4_matmul.launches == before  # CPU tensors run the plain version, no kernel
 
 
+@pytest.mark.parametrize("b", [24, 32])
+def test_k4_plain_matches_pallas_int4_matmul_at_wide_rows(b):
+    """K4's plain version at the 17-32 rows one launch now takes, against the
+    Pallas kernel in interpret mode (it pads B to a multiple of 8), at the bar
+    of the 2-row test above."""
+    k, n, group = 256, 256, 128
+    rng = np.random.default_rng(b)
+    x = rng.normal(size=(b, k)).astype(np.float32)
+    q = JQ.quantize_int4(jnp.asarray(rng.normal(size=(k, n)).astype(np.float32)), group=group)
+    ref = np.asarray(j_int4_matmul(jnp.asarray(x), q["q4"], q["s4"], group=group, block_n=128, interpret=True))
+    got = TM.int4_matmul(_t(x), _t(q["q4"]), _t(q["s4"])).numpy()
+    rel = np.abs(got - ref) / (np.abs(ref) + 1e-2)
+    assert got.shape == (b, n) and np.median(rel) < 1e-2, np.median(rel)
+
+
+@pytest.mark.parametrize("b", [17, 32, 40])
+def test_decode_rows_beyond_16_reach_k4(monkeypatch, b):
+    """A decode-shaped int4 product of any row count takes the K4 wrapper
+    (on the card one launch per block of 32 rows), not the per-group einsum
+    of the prefill."""
+    calls = []
+    monkeypatch.setattr(TQ, "int4_matmul", lambda x, q4, s4: calls.append(tuple(x.shape)) or TM.int4_matmul(x, q4, s4))
+    _, _, w = _quant_pair(64, 40)
+    x = torch.randn(b, 1, 64, generator=torch.Generator().manual_seed(b))
+    y = TQ.qeinsum("bsd,de->bse", x, w)
+    assert calls == [(b, 64)]
+    assert torch.equal(y, TM.int4_matmul_plain(x[:, 0], w["q4"], w["s4"])[:, None])
+    TQ.qeinsum("bsd,de->bse", torch.randn(b, 2, 64), w)  # the prefill: no K4
+    assert calls == [(b, 64)]
+
+
 @pytest.fixture(scope="module")
 def int4_models():
     m = JZonos.from_config(j_tiny(), seed=0, dtype=jnp.float32).quantize(bits=4)

@@ -6,7 +6,8 @@ mirror in Python (``attn_shares`` / ``attn_stages`` for K2,
 ``fused_mlp_columns`` / ``fused_mlp_stages`` for K3's fc1): every cache slot,
 K row, int4 group and F column must be taken exactly once, no group may
 straddle two ranks, the clusters must stay within the hardware's limit and the
-shared-memory plans within the 227 KB a block may use on an H100. The int8
+shared-memory plans within the 227 KB a block may use on an H100, for every
+decode row count up to 40 (one launch per block of 32 rows). The int8
 heads are stored with rows padded to 16 bytes so that K1 reads them by TMA;
 logits and greedy codes must not change for it.
 """
@@ -40,6 +41,25 @@ def _covered_once(pieces, lo, hi):
     return bool((seen[lo:hi] == 1).all() and (seen[:lo] == 0).all())
 
 
+ALL_B = range(1, 41)  # every decode row count up to 40: one launch of 1-32 rows, or two
+
+
+def _launch_rows(b):
+    """The rows of each launch of a B-row call; the blocks take every row once."""
+    blocks = TM._row_blocks(b)
+    assert _covered_once(blocks, 0, b) and all(1 <= rows <= TM.MAX_ROWS for _, rows in blocks)
+    assert len(blocks) == -(-b // TM.MAX_ROWS)
+    return [rows for _, rows in blocks]
+
+
+def test_row_blocks_take_each_row_once_in_launches_of_up_to_32():
+    for b in ALL_B:
+        _launch_rows(b)
+    assert TM.MAX_ROWS == 32 and TM._row_blocks(40) == [(0, 32), (32, 8)] and TM._row_blocks(32) == [(0, 32)]
+    assert [TM.k1_row_groups(TM._rows_padded(b)) for b in (1, 16, 17, 32)] == [8, 8, 4, 4]
+    assert [TM.k4_row_groups(TM._rows_padded(b)) for b in (1, 8, 16, 32)] == [8, 8, 4, 2]
+
+
 @pytest.mark.parametrize("cache_len,pad", [(1152, 0), (1152, 37), (2816, 5), (4096, 0)])
 def test_k2_shares_and_stages_cover_each_slot_once(cache_len, pad):
     """Every attend window 1..cache_len: the ranks' shares, walked in bulk-copy
@@ -70,7 +90,7 @@ def test_k2_plan_fits_shared_memory_and_cluster_limit(g):
 
 @pytest.mark.parametrize("k", [64, 2048, 8192])
 @pytest.mark.parametrize("n", [16, 2048, 3072, 9225])
-@pytest.mark.parametrize("b", [1, 2, 16])
+@pytest.mark.parametrize("b", [1, 2, 16, 24, 32])
 def test_k1_rank_stages_cover_each_k_row_once(k, n, b):
     plan = TM.int8_matmul_plan(b, k, n)
     assert 1 <= plan.cluster <= TM.MAX_CLUSTER
@@ -85,19 +105,22 @@ def test_k1_rank_stages_cover_each_k_row_once(k, n, b):
 
 def test_k1_plan_at_the_main_path_shapes():
     """in_proj, out_proj and the heads at the decode batch fill the 132 SMs of
-    an H100 in one wave, and every B up to 16 fits shared memory."""
+    an H100 in one wave, and every B up to 40 fits shared memory in each launch."""
     for k, n in ((2048, 3072), (2048, 2048), (2048, 9225)):
         plan = TM.int8_matmul_plan(2, k, n)
         assert plan.cluster * -(-n // TM.K1_COLS) >= TM.H100_SMS * 0.9
-        for b in range(1, 17):
-            assert TM.int8_matmul_plan(b, k, n).smem_bytes <= MAX_SMEM
+        for b in ALL_B:
+            for rows in _launch_rows(b):
+                plan = TM.int8_matmul_plan(rows, k, n)
+                assert plan.smem_bytes <= MAX_SMEM and plan.cluster <= TM.MAX_CLUSTER
+                assert _covered_once([p for rank in TM.int8_rank_stages(k, plan) for p in rank], 0, k)
 
 
 # K4 at the four main-path projections (group 128) and at the tiny config's
 # shapes (group min(128, K)).
 K4_SHAPES = [(2048, 3072, 128), (2048, 2048, 128), (2048, 16384, 128), (8192, 2048, 128),
              (64, 128, 64), (64, 256, 64), (128, 64, 128), (256, 192, 128)]
-SOME_B = [1, 2, 3, 8, 16]
+SOME_B = [1, 2, 3, 8, 16, 24, 32]
 
 
 @pytest.mark.parametrize("b", SOME_B)
@@ -123,12 +146,15 @@ def test_k4_ranks_take_each_group_and_packed_row_once(k, n, group, b):
 
 @pytest.mark.parametrize("k,n", [(2048, 3072), (2048, 2048), (2048, 16384), (8192, 2048)])
 def test_k4_plan_at_the_main_path_shapes(k, n):
-    """Every B from 1 to 16 in one pass within 227 KB; at B 2 the grid is one
-    wave on the 132 SMs of an H100 and fills at least 70% of them."""
-    for b in range(1, 17):
-        plan = TM.int4_matmul_plan(b, k, n, 128)
-        assert plan.smem_bytes <= MAX_SMEM, (b, plan)
-        assert plan.cluster * plan.gpr * 128 >= k
+    """Every B from 1 to 40 within 227 KB, one pass per launch of up to 32
+    rows; at B 2 the grid is one wave on the 132 SMs of an H100 and fills at
+    least 70% of them."""
+    for b in ALL_B:
+        for rows in _launch_rows(b):
+            plan = TM.int4_matmul_plan(rows, k, n, 128)
+            assert plan.smem_bytes <= MAX_SMEM and plan.cluster <= TM.MAX_CLUSTER, (rows, plan)
+            assert plan.cluster * plan.gpr * 128 >= k
+            assert _covered_once(TM.int4_rank_groups(k, 128, plan), 0, k // 128)
     plan = TM.int4_matmul_plan(2, k, n, 128)
     assert TM.H100_SMS * 0.7 <= plan.cluster * -(-n // TM.K4_COLS) <= TM.H100_SMS
 
@@ -159,14 +185,19 @@ def test_k3_blocks_take_each_f_column_and_row_once(d, f, d_out, b):
 
 
 def test_k3_plan_at_the_main_path_shape():
-    """Every B from 1 to 16 within 227 KB; fc1's 128 blocks are one wave on
-    an H100, and up to B 4 an fc1 block and an fc2 block fit one SM together
-    (so that fc2's weight copies overlap fc1)."""
-    for b in range(1, 17):
-        plan = TM.fused_mlp_plan(b, 2048, 8192, 2048)
-        assert max(plan.fc1_smem_bytes, plan.fc2.smem_bytes) <= MAX_SMEM, (b, plan)
-        together = plan.fc1_smem_bytes + plan.fc2.smem_bytes + 2 * TM.SMEM_RESERVED_BYTES
-        assert (together <= TM.SM_SMEM_BYTES) == (b <= TM.K3_SHARED_ROWS), (b, plan)
+    """Every B from 1 to 40 within 227 KB in each launch (every F column and
+    row of h once, the cluster within the limit); fc1's 128 blocks are one
+    wave on an H100, and up to B 4 an fc1 block and an fc2 block fit one SM
+    together (so that fc2's weight copies overlap fc1)."""
+    for b in ALL_B:
+        for rows in _launch_rows(b):
+            plan = TM.fused_mlp_plan(rows, 2048, 8192, 2048)
+            assert max(plan.fc1_smem_bytes, plan.fc2.smem_bytes) <= MAX_SMEM, (rows, plan)
+            assert 1 <= plan.fc2.cluster <= TM.MAX_CLUSTER
+            assert _covered_once(TM.fused_mlp_columns(8192, plan), 0, 8192)
+            assert _covered_once([p for rank in TM.int8_rank_stages(8192, plan.fc2) for p in rank], 0, 8192)
+            together = plan.fc1_smem_bytes + plan.fc2.smem_bytes + 2 * TM.SMEM_RESERVED_BYTES
+            assert (together <= TM.SM_SMEM_BYTES) == (rows <= TM.K3_SHARED_ROWS), (rows, plan)
     plan = TM.fused_mlp_plan(2, 2048, 8192, 2048)
     assert plan.blocks == 128 <= TM.H100_SMS and plan.fc2.cluster * 8 == 128
 
@@ -236,7 +267,7 @@ def _tile_columns(n, tile, cluster, per):
 
 @pytest.mark.parametrize("k,n", HYBRID_K1)
 def test_k1_plan_at_the_hybrid_shapes(k, n):
-    for b in range(1, 17):
+    for b in range(1, 33):
         plan = TM.int8_matmul_plan(b, k, n)
         assert 1 <= plan.cluster <= TM.MAX_CLUSTER and plan.smem_bytes <= MAX_SMEM, (b, plan)
         assert _covered_once([p for rank in TM.int8_rank_stages(k, plan) for p in rank], 0, k)
@@ -251,19 +282,21 @@ def test_k1_plan_at_the_hybrid_shapes(k, n):
 @pytest.mark.parametrize("k,n", HYBRID_K4)
 def test_k4_plan_at_the_hybrid_shapes(k, n):
     assert n % 16 == 0  # K4's tensor map of the packed [K/2, N] view
-    for b in range(1, 17):
+    for b in range(1, 33):
         plan = TM.int4_matmul_plan(b, k, n, 128)
         assert 1 <= plan.cluster <= TM.MAX_CLUSTER and plan.smem_bytes <= MAX_SMEM, (b, plan)
         assert _covered_once(TM.int4_rank_groups(k, 128, plan), 0, k // 128)
         assert _covered_once(_tile_columns(n, TM.K4_COLS, plan.cluster, plan.per), 0, n)
-        assert plan.cluster * -(-n // TM.K4_COLS) <= TM.H100_SMS or plan.cluster == 1
+        # one wave up to B 16; at B 17-32 x's slab may take a rank of fewer
+        # groups, and so a larger cluster (in_proj: 4 ranks of 34 tiles)
+        assert plan.cluster * -(-n // TM.K4_COLS) <= TM.H100_SMS or plan.cluster == 1 or b > 16
 
 
 def test_k3_plan_at_the_hybrid_mamba_mlp():
     """D 2048, F 4096: every F column and D row once, fc2 over the 4096 rows
-    of h, within 227 KB for every B from 1 to 16."""
+    of h, within 227 KB for every B from 1 to 32."""
     d, f = 2048, 4096
-    for b in range(1, 17):
+    for b in range(1, 33):
         plan = TM.fused_mlp_plan(b, d, f, d)
         assert max(plan.fc1_smem_bytes, plan.fc2.smem_bytes) <= MAX_SMEM, (b, plan)
         assert _covered_once(TM.fused_mlp_columns(f, plan), 0, f)

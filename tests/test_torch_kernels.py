@@ -43,7 +43,7 @@ def _quant(rng, k, n):
     return JQ.quantize_int8(jnp.asarray(rng.normal(size=(k, n)).astype(np.float32) / np.sqrt(k)))
 
 
-@pytest.mark.parametrize("b,k,n", [(2, 256, 512), (16, 128, 384), (1, 256, 130)])
+@pytest.mark.parametrize("b,k,n", [(2, 256, 512), (16, 128, 384), (1, 256, 130), (24, 128, 384), (32, 256, 256)])
 def test_k1_plain_matches_pallas_int8_matmul(b, k, n):
     rng = np.random.default_rng(0)
     x = _bf16(rng.normal(size=(b, k)))
@@ -102,7 +102,8 @@ def test_k2_plain_matches_xla_attention_fp32(gap):
     np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5 * np.abs(ref).max())
 
 
-@pytest.mark.parametrize("b,d,f,bf", [(2, 128, 256, 128), (1, 256, 512, 256), (8, 128, 512, 128)])
+@pytest.mark.parametrize("b,d,f,bf", [(2, 128, 256, 128), (1, 256, 512, 256), (8, 128, 512, 128),
+                                      (24, 128, 256, 128), (32, 128, 256, 128)])
 def test_k3_plain_matches_pallas_fused_mlp(b, d, f, bf):
     rng = np.random.default_rng(0)
     x = _bf16(rng.normal(size=(b, d)))
@@ -135,6 +136,48 @@ def test_k3_plain_matches_xla_mlp_fp32():
     ref = np.asarray(JQ.qeinsum("bsf,fd->bsd", y * jax.nn.silu(g), w2))[:, 0]
     got = TM.fused_mlp_int8(_t(x[:, 0]), _t(w1["q"]), _t(w1["s"]), _t(w2["q"]), _t(w2["s"])).numpy()
     np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5 * np.abs(ref).max())
+
+
+@pytest.mark.parametrize("b", [17, 32, 40])
+def test_decode_rows_beyond_16_reach_k1_and_k3(monkeypatch, b):
+    """A decode step (S = 1) of any row count takes the kernel wrappers: the
+    int8 projections and the int8 heads K1, the int8 MLP K3 (one wrapper
+    call each, which on the card launches once per block of 32 rows), never
+    the dequantizing product of the prefill."""
+    from zonos_tpu_torch.models import transformer as TT
+    from zonos_tpu_torch.ops import quant as TQ
+    from zonos_tpu_torch.runtime import generate as TG
+
+    calls = []
+
+    def spy(name, fn):
+        def wrapped(x, *args):
+            calls.append((name, tuple(x.shape)))
+            return fn(x, *args)
+        return wrapped
+
+    monkeypatch.setattr(TQ, "int8_matmul", spy("K1", TM.int8_matmul))
+    monkeypatch.setattr(TG, "int8_matmul", spy("K1 heads", TM.int8_matmul))
+    monkeypatch.setattr(TT, "fused_mlp_int8", spy("K3", TM.fused_mlp_int8))
+    gen = torch.Generator().manual_seed(b)
+    d, f, n_q, vh = 64, 96, 2, 40
+    qkv, fc1, fc2, heads = (TQ.quantize_int8(torch.randn(k, n, generator=gen) / k ** 0.5)
+                            for k, n in ((d, 3 * d), (d, 2 * f), (f, d), (d, n_q * vh)))
+    x = torch.randn(b, 1, d, generator=gen)
+
+    y = TQ.qeinsum("bsd,de->bse", x, qkv)
+    assert calls == [("K1", (b, d))]
+    torch.testing.assert_close(y, TM.int8_matmul_plain(x[:, 0], qkv["q"], qkv["s"])[:, None], rtol=0, atol=0)
+    out = TT.mlp(x, {"fc1": fc1, "fc2": fc2})
+    assert calls[1:] == [("K3", (b, d))]
+    ref = TM.fused_mlp_int8_plain(x[:, 0], fc1["q"], fc1["s"], fc2["q"], fc2["s"])[:, None]
+    torch.testing.assert_close(out, ref, rtol=0, atol=0)
+    logits = TG.apply_heads(heads, x, n_q)
+    assert calls[2:] == [("K1 heads", (b, d))] and logits.shape == (b, n_q, 1, vh)
+    # the prefill (S > 1) stays on the dequantizing product, as JAX's XLA path
+    TQ.qeinsum("bsd,de->bse", torch.randn(b, 3, d, generator=gen), qkv)
+    TT.mlp(torch.randn(b, 3, d, generator=gen), {"fc1": fc1, "fc2": fc2})
+    assert len(calls) == 3
 
 
 def test_cpu_tensors_count_no_launch():

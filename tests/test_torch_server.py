@@ -244,3 +244,87 @@ def test_batching_paths(servers, monkeypatch, continuous):
         if tsrv._BATCHER is not None:
             tsrv._BATCHER.close()
         tsrv._BATCHER = tsrv._BATCHER_MODEL = None
+
+
+def test_router_relays_generate_and_longform_bit_equal(servers, monkeypatch):
+    """``serving/router.py`` in front of the live server (one backend), as
+    docs/DEPLOYMENT.md puts it before each fleet: a /generate and a
+    long-form /generate (chunks of at most 15 characters) come back
+    through the router with the bytes the server answers direct, and each
+    long-form request names a wav path of its own. (Two chunks here;
+    test_torch_serving.py holds three-chunk long-form PCM to JAX's.)"""
+    from zonos_tpu_torch.serving import longform, router
+
+    _tsrv, _model, port, _jport = servers
+    monkeypatch.setattr(longform, "MAX_CHUNK_CHARS", 15)
+    front = ThreadingHTTPServer(("127.0.0.1", 0), router.make_handler(router.BackendPool([f"http://127.0.0.1:{port}"])))
+    threading.Thread(target=front.serve_forever, daemon=True).start()
+    try:
+        rport = front.server_address[1]
+        short = {"text": "via the router", "seed": 7, "randomize_seed": False}
+        long_ = {"text": "Good evening. Stay awhile.", "seed": 8, "randomize_seed": False}
+        assert len(longform.chunk_text(long_["text"])) == 2
+        paths = []
+        for body in (short, long_):
+            code, headers, data = _request(rport, "/generate", body)
+            dcode, dheaders, direct = _request(port, "/generate", body)
+            assert code == dcode == 200 and headers["Content-Type"] == "audio/wav"
+            assert data == direct and _wav_frames(data)[1] > 0
+            paths += [json.loads(h["X-Zonos-Meta"])["path"] for h in (headers, dheaders)]
+        assert len(set(paths)) == 4
+        stats = json.loads(_request(rport, "/router_stats")[2])
+        assert stats["backends"] == [{"url": f"http://127.0.0.1:{port}", "outstanding": 0, "healthy": True}]
+    finally:
+        front.shutdown()
+
+
+def test_router_passes_each_stream_chunk_on_as_it_arrives():
+    """/stream through ``serving/router.py``: a backend's first chunk reaches
+    the client while the backend still holds the rest, so time to the first
+    audio through the router is one hop more than direct, not the wait for
+    32 KB of PCM (the engine's first chunk is 16 KB). The backend here is a
+    stub that sends 16 bytes, then waits for the test's event."""
+    import http.client
+    from http.server import BaseHTTPRequestHandler
+
+    from zonos_tpu_torch.serving import router
+
+    release = threading.Event()
+
+    class Backend(BaseHTTPRequestHandler):
+        def log_message(self, *args):
+            pass
+
+        def do_POST(self):
+            self.rfile.read(int(self.headers.get("Content-Length", 0)))
+            self.send_response(200)
+            self.send_header("Transfer-Encoding", "chunked")
+            self.end_headers()
+            for part in (b"\x01\x00" * 8, None, b"\x02\x00" * 8):
+                if part is None:
+                    release.wait(30)
+                    continue
+                self.wfile.write(f"{len(part):X}\r\n".encode() + part + b"\r\n")
+                self.wfile.flush()
+            self.wfile.write(b"0\r\n\r\n")
+
+    backend = ThreadingHTTPServer(("127.0.0.1", 0), Backend)
+    pool = router.BackendPool([f"http://127.0.0.1:{backend.server_address[1]}"])
+    front = ThreadingHTTPServer(("127.0.0.1", 0), router.make_handler(pool))
+    for srv in (backend, front):
+        threading.Thread(target=srv.serve_forever, daemon=True).start()
+    conn = http.client.HTTPConnection("127.0.0.1", front.server_address[1], timeout=10)
+    try:
+        conn.request("POST", "/stream", b"{}", {"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        assert resp.status == 200
+        first = resp.read(16)  # the backend holds its second chunk until release
+        assert first == b"\x01\x00" * 8
+    finally:
+        release.set()
+    try:
+        assert resp.read() == b"\x02\x00" * 8
+    finally:
+        conn.close()
+        front.shutdown()
+        backend.shutdown()

@@ -180,3 +180,79 @@ def test_prepare_generation_params_and_chunk_plan_match_jax():
     t_plan = TP.plan_chunks(long_text, tp, 2.0, 0.1)
     assert len(t_plan) == len(j_plan) > 1
     assert [(c, vars(p)) for c, p in t_plan] == [(c, vars(p)) for c, p in j_plan]
+
+
+LONGFORM_CORPUS = [
+    "Hello there. How are you? I am fine! Thanks… and you",
+    "Guten Tag. Wie geht es Ihnen? Mir geht es gut, danke; und Ihnen: auch gut.",
+    "Bonjour ! Comment ça va ? Très bien, merci.",
+    "Привет. Как дела? Хорошо!",
+    "今日は晴れです。明日は雨でしょう！本当に？",
+    "你好。今天天气很好！你呢？",
+    "مرحبا بك؟ كيف حالك۔ أنا بخير.",
+    "नमस्ते। आप कैसे हैं? मैं ठीक हूँ।",
+    "one long sentence without any terminator that keeps going, and going, past every limit " * 6,
+    "word " * 200,
+    "",
+    "   ",
+    "Short.",
+]
+
+
+@pytest.mark.parametrize("max_chars", [0, 24, 80])
+def test_longform_split_and_chunk_match_jax(max_chars):
+    from zonos_tpu.serving import longform as JL
+    from zonos_tpu_torch.serving import longform as TL
+
+    for text in LONGFORM_CORPUS:
+        assert TL.split_sentences(text) == JL.split_sentences(text), text
+        assert TL.chunk_text(text, max_chars) == JL.chunk_text(text, max_chars), text
+        assert TL.is_longform(text, max_chars) == JL.is_longform(text, max_chars), text
+
+
+LONGFORM_TEXT = "Good evening. Stay awhile. Watch the road."  # three chunks at 15 characters
+
+
+def _greedy_params(module, monkeypatch):
+    prepare = module.prepare_generation_params
+
+    def greedy(*args, **kw):
+        p = prepare(*args, **kw)
+        p.sampling = dict(GREEDY)
+        return p
+
+    monkeypatch.setattr(module, "prepare_generation_params", greedy)
+
+
+@pytest.mark.parametrize("continuity", ["0", "1"])
+def test_longform_tts_matches_jax(tmp_path, monkeypatch, models, continuity):
+    """pipeline.tts on a three-chunk text at greedy (chunks of at most 15
+    characters): the chunks' codes, the gaps (or, with
+    ZONOS_LONGFORM_CONTINUITY=1, each chunk continuing the last 43 frames of
+    the one before) and the tiny DAC's PCM within 1e-4 of JAX's, as the
+    one-chunk slice above. Random tiny weights give near-tied greedy picks
+    in some texts, where the two int8 KV caches' roundings part ("Hello
+    there." from frame 72): the chunks here have none."""
+    from zonos_tpu.serving import longform as JL
+    from zonos_tpu_torch.serving import longform as TL
+
+    _, _, jm, tm = models
+    monkeypatch.setattr(tm, "default_kv_int8", jm.default_kv_int8)  # int8 KV, as JAX's quantize() sets
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setenv("ZONOS_LONGFORM_CONTINUITY", continuity)
+    monkeypatch.setenv("ZONOS_PCM_INT16", "0")
+    for mod in (JL, TL):
+        monkeypatch.setattr(mod, "MAX_CHUNK_CHARS", 15)
+    for mod in (JP, TP):
+        _greedy_params(mod, monkeypatch)
+    assert len(TL.chunk_text(LONGFORM_TEXT)) == 3
+    j_path, j_wav, j_sr, _ = JP.tts(jm, LONGFORM_TEXT, seed=5, randomize_seed=False,
+                                    output_path=str(tmp_path / "jax.wav"))
+    t_path, t_wav, t_sr, _ = TP.tts(tm, LONGFORM_TEXT, seed=5, randomize_seed=False,
+                                    output_path=str(tmp_path / "port.wav"))
+    assert t_sr == j_sr == 44100 and t_wav.shape == j_wav.shape
+    gap = int(TL.CHUNK_GAP_S * t_sr)
+    assert t_wav.shape[0] >= 3 * 8 + (0 if continuity == "1" else 2 * gap)
+    np.testing.assert_allclose(t_wav, np.asarray(j_wav), rtol=0, atol=1e-4)
+    back, back_sr = read_wav(t_path)
+    assert back_sr == 44100 and back.shape[-1] == t_wav.shape[0]

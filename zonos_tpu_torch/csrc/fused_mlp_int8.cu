@@ -3,7 +3,7 @@
 // Replaces the TPU kernels zonos_tpu/ops/pallas_matmul.py::fused_mlp_int8
 // and ::fused_mlp_int8_split (body _fused_mlp_kernel):
 //     out = ((x @ w1_y) * s1y * silu((x @ w1_g) * s1g)) @ w2 * s2
-// with x bf16 [B, D], 1 <= B <= 16, w1 int8 (y and gate halves), w2 int8
+// with x bf16 [B, D], 1 <= B <= 32, w1 int8 (y and gate halves), w2 int8
 // [F, Dout], the hidden h rounded to bf16 before fc2, and out f32 [B, Dout].
 //
 // Bound on an H100: device-memory bytes, the 3 * D * F int8 weights (50.4 MB
@@ -16,10 +16,12 @@
 //      per rank streams its w1 rows into a ring, each slot two 2-D TMA boxes
 //      ([64, 128] of y and [64, 128] of gate) from two tensor maps; the other
 //      warps stage the rank's x rows once (bf16, k-major, every B row padded
-//      to 1, 2, 4, 8 or 16). A thread takes 4 columns of y or of gate (a
+//      to 1, 2, 4, 8, 16 or 32). A thread takes 4 columns of y or of gate (a
 //      warp reads one 128-byte box row) and every 8th row of a slot,
-//      dequantized by byte permutes (exact) and summed in f32. The 8 row
-//      groups are added in shared memory; each rank pushes the sums of the 64
+//      dequantized by byte permutes (exact) and summed in f32 for at most
+//      16 rows of x (at B 32 the threads form two halves of 4 row groups,
+//      one per 16 rows, as K1's body does). The row groups are added in
+//      shared memory; each rank pushes the sums of the 64
 //      F columns the other rank finishes into its shared memory (distributed
 //      shared memory stores), and after a cluster barrier each rank adds the
 //      two ranks' sums in rank order, scales them, and writes
@@ -59,7 +61,6 @@ constexpr int OWN = FC / RANKS;      // F columns each rank finishes: 64
 constexpr int CPT = 4;               // columns per thread
 constexpr int THREADS = 512;
 constexpr int CG = 2 * FC / CPT;     // column groups: 64 (32 of y, 32 of gate)
-constexpr int KG = THREADS / CG;     // row groups: 8
 constexpr int S1 = 64;               // rows per ring slot: one box [S1, FC] per half
 constexpr int HALF_BYTES = S1 * FC;  // 8 KB
 constexpr int SLOT_BYTES = 2 * HALF_BYTES;
@@ -87,6 +88,8 @@ mlp_fc1_gate(const __grid_constant__ CUtensorMap ymap, const __grid_constant__ C
              __nv_bfloat16* __restrict__ h, int B, int D, int F, int max_slots)
 {
     using namespace zt;
+    // A thread sums RT = min(RB, 16) rows of x; at RB 32 two thread halves of 4 row groups, else 8.
+    constexpr int RT = RB < 16 ? RB : 16, KG = THREADS / (CG * (RB / RT));
     // fc2 may be launched now: it waits for this grid's end before reading h.
     asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
     // The other rank writes into recv below: arrive now, wait before the first such write.
@@ -94,7 +97,7 @@ mlp_fc1_gate(const __grid_constant__ CUtensorMap ymap, const __grid_constant__ C
     extern __shared__ __align__(128) unsigned char smem[];
     cg::cluster_group cluster = cg::this_cluster();
     const int rank = (int)cluster.block_rank();
-    const int tid = threadIdx.x, cgi = tid % CG, kgi = tid / CG;
+    const int tid = threadIdx.x, cgi = tid % CG, kgi = (tid / CG) % KG, b0 = tid / (CG * KG) * RT;
     const int f0 = blockIdx.y * FC;
     const int dh = (D + RANKS - 1) / RANKS;
     const int k_begin = min(D, rank * dh), rows = min(D, k_begin + dh) - k_begin;
@@ -131,9 +134,9 @@ mlp_fc1_gate(const __grid_constant__ CUtensorMap ymap, const __grid_constant__ C
 
     // Column groups 0-31 are y's columns, 32-63 gate's: a warp reads one box row.
     const int col_off = (cgi >= CG / 2 ? HALF_BYTES : 0) + (cgi % (CG / 2)) * CPT;
-    float acc[RB][CPT];
+    float acc[RT][CPT];
 #pragma unroll
-    for (int b = 0; b < RB; ++b)
+    for (int b = 0; b < RT; ++b)
 #pragma unroll
         for (int j = 0; j < CPT; ++j) acc[b][j] = 0.f;
 
@@ -145,11 +148,11 @@ mlp_fc1_gate(const __grid_constant__ CUtensorMap ymap, const __grid_constant__ C
         for (int i = 0; i < S1 / KG; ++i) {
             const int r = kgi + i * KG;
             if (r < nr) {
-                float wf[CPT], xv[RB];
+                float wf[CPT], xv[RT];
                 unpack4(*reinterpret_cast<const uint32_t*>(src + r * FC), wf);
-                load_xh<RB>(xs + (size_t)(r0 + r) * RB, xv);
+                load_xh<RT>(xs + (size_t)(r0 + r) * RB + b0, xv);
 #pragma unroll
-                for (int b = 0; b < RB; ++b)
+                for (int b = 0; b < RT; ++b)
 #pragma unroll
                     for (int j = 0; j < CPT; ++j) acc[b][j] = fmaf(xv[b], wf[j], acc[b][j]);
             }
@@ -163,8 +166,8 @@ mlp_fc1_gate(const __grid_constant__ CUtensorMap ymap, const __grid_constant__ C
 
     // red column c < 128 is y's column f0 + c, c >= 128 gate's column f0 + c - 128.
 #pragma unroll
-    for (int b = 0; b < RB; ++b)
-        *reinterpret_cast<float4*>(red + ((size_t)kgi * RB + b) * 2 * FC + cgi * CPT) =
+    for (int b = 0; b < RT; ++b)
+        *reinterpret_cast<float4*>(red + ((size_t)kgi * RB + b0 + b) * 2 * FC + cgi * CPT) =
             make_float4(acc[b][0], acc[b][1], acc[b][2], acc[b][3]);
     __syncthreads();
     asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");  // both ranks have started
@@ -233,7 +236,7 @@ extern "C" int zt_fused_mlp_int8(const void* x, const void* w1y, const void* w1g
                                  int F, int Dout, int fc1_slots, int fc1_smem, int cluster2, int kc2, int slots2,
                                  int smem2, void* stream)
 {
-    if (B < 1 || B > 16 || ld1 % 16 || ld1 < F || (reinterpret_cast<uintptr_t>(w1y) & 15) ||
+    if (B < 1 || B > 32 || ld1 % 16 || ld1 < F || (reinterpret_cast<uintptr_t>(w1y) & 15) ||
         (reinterpret_cast<uintptr_t>(w1g) & 15))
         return (int)cudaErrorInvalidValue;
     CUtensorMap ymap = {}, gmap = {};
@@ -245,7 +248,8 @@ extern "C" int zt_fused_mlp_int8(const void* x, const void* w1y, const void* w1g
     else if (B == 2) err = launch_fc1<2>(ymap, gmap, x, s1y, s1g, h, B, D, F, fc1_slots, fc1_smem, st);
     else if (B <= 4) err = launch_fc1<4>(ymap, gmap, x, s1y, s1g, h, B, D, F, fc1_slots, fc1_smem, st);
     else if (B <= 8) err = launch_fc1<8>(ymap, gmap, x, s1y, s1g, h, B, D, F, fc1_slots, fc1_smem, st);
-    else err = launch_fc1<16>(ymap, gmap, x, s1y, s1g, h, B, D, F, fc1_slots, fc1_smem, st);
+    else if (B <= 16) err = launch_fc1<16>(ymap, gmap, x, s1y, s1g, h, B, D, F, fc1_slots, fc1_smem, st);
+    else err = launch_fc1<32>(ymap, gmap, x, s1y, s1g, h, B, D, F, fc1_slots, fc1_smem, st);
     if (err) return err;
     return zt::launch_gemv<true>(h, w2, Dout, s2, y, B, F, Dout, cluster2, kc2, slots2, smem2, st);
 }

@@ -4,7 +4,7 @@
 //   * shared-memory addresses, mbarrier set-up and waits, 2-D TMA box copies;
 //   * the tensor-map cache: maps of the weights seen so far, encoded once on
 //     the host (cuTensorMapEncodeTiled through cudaGetDriverEntryPoint);
-//   * int8_gemv_cluster, K1's body: y = (x · w) · s for 1-16 rows of x, split-K
+//   * int8_gemv_cluster, K1's body: y = (x · w) · s for 1-32 rows of x, split-K
 //     reduced inside a thread-block cluster (see int8_matmul.cu's head). With
 //     PDL set it is launched as a programmatic dependent of the kernel before
 //     it: it issues its weight copies first and waits for that kernel
@@ -189,13 +189,21 @@ constexpr int TN = 256;           // columns per block
 constexpr int THREADS = 512;
 constexpr int CPT = 4;            // columns per thread
 constexpr int CG = TN / CPT;      // column groups: 64
-constexpr int KG = THREADS / CG;  // row groups: 8
 constexpr int SK = 128;           // rows per ring slot: one TMA box [SK, TN]
+
+// A thread sums RT = min(RB, 16) rows of x: at RB 32 the block's threads
+// form two halves (rows 0-15 and 16-31), each with 4 row groups, else one
+// of 8. Either way the row groups' sums [KG][RB][TN] take 128 KB at most.
+template <int RB>
+struct Geom {
+    static constexpr int RT = RB < 16 ? RB : 16;
+    static constexpr int KG = THREADS / (CG * (RB / RT));
+};
 }  // namespace k1
 
-// RB: rows of x padded to 1, 2, 4, 8 or 16. VEC: TMA copies (row stride and
-// base 16-byte aligned) or byte loads. kc: K rows per rank; per: columns each
-// rank reduces; max_slots: ring slots at most.
+// RB: rows of x padded to 1, 2, 4, 8, 16 or 32. VEC: TMA copies (row stride
+// and base 16-byte aligned) or byte loads. kc: K rows per rank; per: columns
+// each rank reduces; max_slots: ring slots at most.
 template <int RB, bool VEC, bool PDL>
 __global__ void __launch_bounds__(k1::THREADS, PDL && RB <= 4 ? 2 : 1)
 int8_gemv_cluster(const __grid_constant__ CUtensorMap wmap, const __nv_bfloat16* __restrict__ x,
@@ -203,6 +211,7 @@ int8_gemv_cluster(const __grid_constant__ CUtensorMap wmap, const __nv_bfloat16*
                   float* __restrict__ y, int B, int K, int N, int kc, int per, int max_slots)
 {
     using namespace k1;
+    constexpr int RT = Geom<RB>::RT, KG = Geom<RB>::KG;
     extern __shared__ __align__(128) unsigned char smem[];
     // Remote ranks write into recv below: arrive now, wait before the first such write.
     asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
@@ -258,10 +267,10 @@ int8_gemv_cluster(const __grid_constant__ CUtensorMap wmap, const __nv_bfloat16*
     }
     __syncthreads();  // xs written, barriers initialised
 
-    const int cgi = tid % CG, kgi = tid / CG;
-    float acc[RB][CPT];
+    const int cgi = tid % CG, kgi = (tid / CG) % KG, b0 = tid / (CG * KG) * RT;
+    float acc[RT][CPT];
 #pragma unroll
-    for (int b = 0; b < RB; ++b)
+    for (int b = 0; b < RT; ++b)
 #pragma unroll
         for (int j = 0; j < CPT; ++j) acc[b][j] = 0.f;
 
@@ -278,11 +287,11 @@ int8_gemv_cluster(const __grid_constant__ CUtensorMap wmap, const __nv_bfloat16*
         for (int i = 0; i < SK / KG; ++i) {
             const int r = kgi + i * KG;
             if (r < nr) {
-                float wf[CPT], xv[RB];
+                float wf[CPT], xv[RT];
                 unpack4(*reinterpret_cast<const uint32_t*>(src + r * TN), wf);
-                load_x<RB>(xs + (size_t)(r0 + r) * RB, xv);
+                load_x<RT>(xs + (size_t)(r0 + r) * RB + b0, xv);
 #pragma unroll
-                for (int b = 0; b < RB; ++b)
+                for (int b = 0; b < RT; ++b)
 #pragma unroll
                     for (int j = 0; j < CPT; ++j) acc[b][j] = fmaf(xv[b], wf[j], acc[b][j]);
             }
@@ -294,10 +303,10 @@ int8_gemv_cluster(const __grid_constant__ CUtensorMap wmap, const __nv_bfloat16*
     }
     __syncthreads();  // every slot read: the ring becomes red
 
-    // The block's 8 row groups; their sum for column col goes to the rank that owns col.
+    // The block's row groups; their sum for column col goes to the rank that owns col.
 #pragma unroll
-    for (int b = 0; b < RB; ++b)
-        *reinterpret_cast<float4*>(red + ((size_t)kgi * RB + b) * TN + cgi * CPT) =
+    for (int b = 0; b < RT; ++b)
+        *reinterpret_cast<float4*>(red + ((size_t)kgi * RB + b0 + b) * TN + cgi * CPT) =
             make_float4(acc[b][0], acc[b][1], acc[b][2], acc[b][3]);
     __syncthreads();
     asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");  // every rank has started
@@ -357,14 +366,14 @@ int launch_gemv_rb(const void* x, const void* w, long long ldw, const void* scal
     return (int)cudaGetLastError();
 }
 
-// K1's launch for any B in 1..16 (cluster K ranks of kc rows each, the ring
+// K1's launch for any B in 1..32 (cluster K ranks of kc rows each, the ring
 // at most max_slots slots, smem_bytes as ops/cuda_matmul.int8_matmul_plan
 // lays it out). PDL: launch as a programmatic dependent (TMA path only).
 template <bool PDL>
 int launch_gemv(const void* x, const void* w, long long ldw, const void* scale, void* y, int B, int K, int N,
                 int cluster, int kc, int max_slots, int smem_bytes, cudaStream_t st)
 {
-    if (B < 1 || B > 16 || cluster < 1 || cluster > MAX_CLUSTER || (long long)cluster * kc < K || ldw < N)
+    if (B < 1 || B > 32 || cluster < 1 || cluster > MAX_CLUSTER || (long long)cluster * kc < K || ldw < N)
         return (int)cudaErrorInvalidValue;
     const bool vec = ldw % 16 == 0 && (reinterpret_cast<uintptr_t>(w) & 15) == 0;
     if (PDL && !vec) return (int)cudaErrorInvalidValue;
@@ -375,7 +384,8 @@ int launch_gemv(const void* x, const void* w, long long ldw, const void* scale, 
     if (B == 2) return ZT_GEMV(2);
     if (B <= 4) return ZT_GEMV(4);
     if (B <= 8) return ZT_GEMV(8);
-    return ZT_GEMV(16);
+    if (B <= 16) return ZT_GEMV(16);
+    return ZT_GEMV(32);
 #undef ZT_GEMV
 }
 

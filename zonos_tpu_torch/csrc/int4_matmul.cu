@@ -2,7 +2,7 @@
 //
 // Replaces the TPU kernel zonos_tpu/ops/pallas_matmul.py::int4_matmul (body
 // _int4_kernel): y[b, n] = sum_g s4[g, n] * sum_{k in group g} x[b, k] * w[k, n]
-// with x bf16 [B, K], 1 <= B <= 16, y f32 [B, N], and w packed two weights to
+// with x bf16 [B, K], 1 <= B <= 32, y f32 [B, N], and w packed two weights to
 // a byte: q4 uint8 [G, group/2, N], where byte (g, j, n) holds row
 // g*group + j in its low nibble and row g*group + j + group/2 in its high
 // nibble, both two's complement; s4 f32 [G, N] (one scale per group and
@@ -19,8 +19,8 @@
 //     tensor map of the packed [K/2, N] view) per slot, each completing on
 //     the slot's mbarrier; at the main-path shapes the whole slab is in
 //     flight at once while the other warps stage x (f32, k-major, every B
-//     row padded to 1, 2, 4, 8 or 16) and the rank's scales [groups, 256]
-//     in shared memory. B up to 16 reads the weight once;
+//     row padded to 1, 2, 4, 8, 16 or 32) and the rank's scales [groups, 256]
+//     in shared memory. B up to 32 reads the weight once;
 //   * a thread takes 4 columns (one 32-bit word of a packed row) and every
 //     KG-th packed row of a group, unpacks both nibbles of each byte to exact
 //     floats (mask, xor 8, byte permute into 2^23 + v + 8), sums x * q of its
@@ -34,7 +34,8 @@
 // The packed view's row stride (N bytes) and base must be 16-byte aligned
 // for a tensor map; the wrapper refuses other layouts (every main-path N is
 // a multiple of 16). A thread keeps sums for at most 8 rows of x, so at
-// B 16 the 512 threads form two halves of 4 row groups, one per 8 rows.
+// B 16 the 512 threads form two halves of 4 row groups, one per 8 rows, and
+// at B 32 four quarters of 2 row groups.
 // The TPU kernel rounds the dequantized weight to bf16 before its dot; here
 // the scale multiplies exact f32 sums, the form of the JAX package's XLA path
 // (ops/quant.py::q4einsum_lastdim).
@@ -59,7 +60,8 @@ constexpr int MAX_SLOTS = 8; // ring slots at most (one group each)
 constexpr int THREADS = 512;
 
 // A thread sums RT = min(RB, 8) rows of x; at B 16 the block's threads form
-// two halves (rows 0-7 and 8-15), each with KG = 4 row groups, else KG = 8.
+// two halves (rows 0-7 and 8-15), each with KG = 4 row groups, at B 32 four
+// quarters with KG = 2, else KG = 8.
 template <int RB>
 struct Geom {
     static constexpr int RT = RB < 8 ? RB : 8;
@@ -79,7 +81,7 @@ __device__ __forceinline__ void unpack_nibbles(uint32_t w, float* lo, float* hi)
     }
 }
 
-// RB: rows of x padded to 1, 2, 4, 8 or 16. half: packed rows per group
+// RB: rows of x padded to 1, 2, 4, 8, 16 or 32. half: packed rows per group
 // (group / 2); gpr: groups per rank; per: columns each rank reduces.
 template <int RB>
 __global__ void __launch_bounds__(THREADS, 1)
@@ -243,7 +245,7 @@ extern "C" int zt_int4_matmul(const void* x, const void* q4, const void* s4, voi
                               int cluster, int gpr, int smem_bytes, void* stream)
 {
     const int half = group / 2;
-    if (B < 1 || B > 16 || group < 2 || group % 2 || half > 256 || K % group || cluster < 1 ||
+    if (B < 1 || B > 32 || group < 2 || group % 2 || half > 256 || K % group || cluster < 1 ||
         cluster > zt::MAX_CLUSTER || (long long)cluster * gpr * group < K || N % 16 ||
         (reinterpret_cast<uintptr_t>(q4) & 15) || (reinterpret_cast<uintptr_t>(s4) & 15))
         return (int)cudaErrorInvalidValue;
@@ -255,5 +257,6 @@ extern "C" int zt_int4_matmul(const void* x, const void* q4, const void* s4, voi
     if (B == 2) return launch<2>(wmap, x, s4, y, B, K, N, half, cluster, gpr, smem_bytes, st);
     if (B <= 4) return launch<4>(wmap, x, s4, y, B, K, N, half, cluster, gpr, smem_bytes, st);
     if (B <= 8) return launch<8>(wmap, x, s4, y, B, K, N, half, cluster, gpr, smem_bytes, st);
-    return launch<16>(wmap, x, s4, y, B, K, N, half, cluster, gpr, smem_bytes, st);
+    if (B <= 16) return launch<16>(wmap, x, s4, y, B, K, N, half, cluster, gpr, smem_bytes, st);
+    return launch<32>(wmap, x, s4, y, B, K, N, half, cluster, gpr, smem_bytes, st);
 }

@@ -2,7 +2,7 @@
 //
 // Replaces the TPU kernel zonos_tpu/ops/pallas_matmul.py::int8_matmul
 // (body _kernel): y[b, n] = (sum_k x[b, k] * wq[k, n]) * s[n], x bf16 [B, K]
-// with 1 <= B <= 16, wq int8 [K, N] with row stride ldw (unit column
+// with 1 <= B <= 32, wq int8 [K, N] with row stride ldw (unit column
 // stride), s f32 [N], y f32 [B, N]. Products are exact in f32, sums f32.
 //
 // Bound on an H100: device-memory bytes (the int8 weight, read once: 6.3 MB
@@ -20,7 +20,9 @@
 //   * a thread takes 4 columns (one 32-bit word of a row) and every 8th
 //     row of a slot (16 rows, unrolled), dequantizes by byte permutes
 //     (exact) and sums all B rows in f32, starting as soon as a slot lands;
-//   * the block adds its 8 row groups, and each rank pushes its sums for
+//     at B 32 a thread keeps 16 rows of x, the threads forming two halves
+//     that each take every 4th row (ops/cuda_matmul.k1_row_groups);
+//   * the block adds its row groups, and each rank pushes its sums for
 //     the columns that rank r owns into rank r's shared memory (distributed
 //     shared memory stores); after one cluster barrier rank r adds the
 //     ranks' sums in rank order, applies the scale once and writes y:

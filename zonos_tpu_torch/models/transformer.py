@@ -32,7 +32,7 @@ from zonos_tpu_torch.ops.attention import (
     causal_prefix_mask, decode_mask, gqa_attention, gqa_attention_quantized,
 )
 from zonos_tpu_torch.ops.cuda_attention import attn_core_int8
-from zonos_tpu_torch.ops.cuda_matmul import MAX_ROWS, fused_mlp_int8
+from zonos_tpu_torch.ops.cuda_matmul import fused_mlp_int8
 from zonos_tpu_torch.ops.norms import layer_norm
 from zonos_tpu_torch.ops.quant import is_quantized, qeinsum
 from zonos_tpu_torch.ops.rope import apply_rope, rope_rows
@@ -122,10 +122,10 @@ def _layer(tree, li: int):
 
 
 def _decode_mlp(h2: torch.Tensor, mlp_p: dict) -> torch.Tensor | None:
-    """The decode step's int8 MLP through K3 (f32 [B, 1, D]), or None where K3
-    does not apply."""
+    """The decode step's int8 MLP through K3 (f32 [B, 1, D]) at any B, or None
+    where K3 does not apply (the prefill, weights not int8)."""
     fc1, fc2 = mlp_p["fc1"], mlp_p["fc2"]
-    if h2.shape[1] != 1 or h2.shape[0] > MAX_ROWS or not (is_quantized(fc1) and is_quantized(fc2)):
+    if h2.shape[1] != 1 or not (is_quantized(fc1) and is_quantized(fc2)):
         return None
     return fused_mlp_int8(h2[:, 0].contiguous(), fc1["q"], fc1["s"], fc2["q"], fc2["s"])[:, None, :]
 

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from zonos_tpu_torch.ops.cuda_matmul import MAX_ROWS, int4_matmul, int8_matmul, unpack_nibbles
+from zonos_tpu_torch.ops.cuda_matmul import int4_matmul, int8_matmul, unpack_nibbles
 
 
 def quantize_int8(w: torch.Tensor) -> dict:
@@ -68,14 +68,14 @@ def is_quantized4(w) -> bool:
 def q4einsum_lastdim(x: torch.Tensor, w: dict, out_dtype=None) -> torch.Tensor:
     """y = x @ dequant(w) for a packed-int4 weight: [..., K] → [..., N].
 
-    Decode-shaped inputs (x [B, 1, K] with B <= 16, a 3-D q4) go to the int4
+    Decode-shaped inputs (x [B, 1, K], any B, a 3-D q4) go to the int4
     GEMV kernel K4. Everything else (the prefill) unpacks to x's dtype, runs
     the per-group product, scales each group's sum in f32 and adds the groups,
     as JAX's XLA path does.
     """
     q, s = w["q4"], w["s4"]
     out_dtype = out_dtype or x.dtype
-    if x.dim() == 3 and x.shape[1] == 1 and q.dim() == 3 and x.shape[0] <= MAX_ROWS:
+    if x.dim() == 3 and x.shape[1] == 1 and q.dim() == 3:
         return int4_matmul(x[:, 0].contiguous(), q, s)[:, None, :].to(out_dtype)
     g, grp = q.shape[-3], q.shape[-2] * 2
     xg = x.reshape(*x.shape[:-1], g, grp)
@@ -100,7 +100,7 @@ def qeinsum(eq: str, x: torch.Tensor, w, out_dtype=None) -> torch.Tensor:
     scaled product's f32 values unrounded (a plain w's product is x's dtype).
 
     int4 weights go to ``q4einsum_lastdim`` (every call site contracts x's last
-    axis). For int8, decode-shaped inputs (x [B, 1, K] with B <= 16, a 2-D
+    axis). For int8, decode-shaped inputs (x [B, 1, K], any B, a 2-D
     weight) go to the int8 GEMV kernel K1; everything else (the prefill)
     dequantizes the int8 operand to x's dtype at the product and applies the
     scale after it, as JAX's XLA path does.
@@ -111,7 +111,7 @@ def qeinsum(eq: str, x: torch.Tensor, w, out_dtype=None) -> torch.Tensor:
     if not is_quantized(w):
         return torch.einsum(eq, x, w).to(out_dtype)
     q, s = w["q"], w["s"]
-    if x.dim() == 3 and x.shape[1] == 1 and q.dim() == 2 and x.shape[0] <= MAX_ROWS:
+    if x.dim() == 3 and x.shape[1] == 1 and q.dim() == 2:
         return int8_matmul(x[:, 0].contiguous(), q, s)[:, None, :].to(out_dtype)
     y = torch.einsum(eq, x, q.to(x.dtype))
     return (y.float() * s.reshape(-1)).to(out_dtype)

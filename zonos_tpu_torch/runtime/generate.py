@@ -28,7 +28,7 @@ import torch.distributed as dist
 from zonos_tpu_torch import resolve_device
 from zonos_tpu_torch.config import ZonosConfig
 from zonos_tpu_torch.models.backbone import backbone_forward
-from zonos_tpu_torch.ops.cuda_matmul import MAX_ROWS, int8_matmul
+from zonos_tpu_torch.ops.cuda_matmul import int8_matmul
 from zonos_tpu_torch.ops.delay_pattern import apply_delay_pattern_np, revert_delay_pattern_np
 from zonos_tpu_torch.ops.quant import is_quantized
 from zonos_tpu_torch.ops.sampling import SamplingParams
@@ -60,14 +60,14 @@ def apply_heads(head_weight, hidden: torch.Tensor, n_q: int) -> torch.Tensor:
     """Fused output heads → f32 logits [B, n_q, S, Vh].
 
     head_weight is [D, n_q * Vh] or its int8 {"q","s"} dict. A decode-shaped
-    call on int8 heads (S = 1, B <= 16) runs through K1, which reads the int8
+    call on int8 heads (S = 1, any B) runs through K1, which reads the int8
     weight once and sums in f32 — the product JAX computes with f32
     accumulation; other shapes dequantize at the product.
     """
     b, s, _ = hidden.shape
     if is_quantized(head_weight):
         q, sc = head_weight["q"], head_weight["s"]
-        if s == 1 and b <= MAX_ROWS:
+        if s == 1:
             logits = int8_matmul(hidden[:, 0].contiguous(), q, sc)[:, None, :]
         else:
             logits = torch.matmul(hidden.float(), q.float()) * sc.reshape(1, 1, -1)

@@ -9,7 +9,8 @@ that arrive together share it. This batcher:
   max_new_tokens, unconditional keys, scalar controls, stream or not),
 * builds ONE batched conditioning (texts, speakers and controls stack on the
   batch axis) and runs ONE ``generate_audio`` (or ``generate_stream``) of up
-  to 8 requests, 16 rows with CFG: K1-K3's limit,
+  to ``max_batch`` requests (16 requests are 32 rows with CFG: one K1 or K3
+  launch each),
 * hands each request its own valid PCM.
 
 Batched requests share the group's generation length ceiling; EOS still

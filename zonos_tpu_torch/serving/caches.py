@@ -5,6 +5,13 @@ format, so either backend reads the other's entries: a thread-locked two-tier
 cache — in-memory dict + on-disk ``.npz`` files under
 ``cache/{embeds/<model>,prefixes}/`` relative to the working directory —
 keyed by the audio file stem, plus timestamped wav output directories.
+
+Several server processes may share one working directory (one per card
+behind ``serving/router.py``): each writer of an entry writes a temporary
+file of its own (process and thread in its name) and renames it into place,
+so a reader never sees a half-written entry, and each process's output
+directory carries its process id. The JAX package's copy uses one temporary
+name per key and a directory named to the second.
 """
 
 from __future__ import annotations
@@ -52,7 +59,7 @@ class TensorCacheManager:
             self._mem[key] = value
         if persist:
             self.dir.mkdir(parents=True, exist_ok=True)
-            tmp = self._path(key).with_suffix(".tmp.npz")
+            tmp = self.dir / f"{_sanitize(key)}.{writer_tag()}.tmp.npz"
             np.savez(tmp, data=value)
             os.replace(tmp, self._path(key))
 
@@ -69,6 +76,12 @@ class TensorCacheManager:
     def size(self) -> int:
         with self._lock:
             return len(self._mem)
+
+
+def writer_tag() -> str:
+    """This process and thread: in a temporary file's name, one no other
+    writer in the working directory shares."""
+    return f"{os.getpid()}-{threading.get_ident()}"
 
 
 def _sanitize(name: str) -> str:
@@ -100,9 +113,11 @@ _OUTPUT_ROOT: str | None = None
 
 
 def get_output_dir(base: str = "output_temp") -> str:
-    """Timestamped per-process output directory."""
+    """Timestamped per-process output directory, ``<base>/<time>-<pid>``:
+    processes started in the same second write apart."""
     global _OUTPUT_ROOT
-    if _OUTPUT_ROOT is None:
-        _OUTPUT_ROOT = os.path.join(base, time.strftime("%Y%m%d-%H%M%S"))
-        os.makedirs(_OUTPUT_ROOT, exist_ok=True)
-    return _OUTPUT_ROOT
+    with _CACHE_LOCK:
+        if _OUTPUT_ROOT is None:
+            _OUTPUT_ROOT = os.path.join(base, f"{time.strftime('%Y%m%d-%H%M%S')}-{os.getpid()}")
+            os.makedirs(_OUTPUT_ROOT, exist_ok=True)
+        return _OUTPUT_ROOT

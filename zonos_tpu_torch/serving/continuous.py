@@ -2,8 +2,8 @@
 decode (port of ``zonos_tpu/serving/continuous.py``).
 
 The engine holds a fixed-shape batch of ``slots`` decode lanes (2 x slots
-rows with CFG: 16 at the default 8, K1-K3's limit) and changes membership
-between segments:
+rows with CFG: 16 at the default 8, 32 at 16, one K1-K3 launch each) and
+changes membership between segments:
 
 * every request, the first included, enters by ``join``: a batch-size-1
   prefill copied into a free slot (``runtime/continuous.py``);

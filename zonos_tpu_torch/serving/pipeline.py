@@ -13,6 +13,7 @@ long-form chunk from the last codes of the one before, default off).
 
 from __future__ import annotations
 
+import itertools
 import logging
 import math
 import os
@@ -30,6 +31,16 @@ from zonos_tpu_torch.serving.audio_prep import process_prefix_audio, process_spe
 from zonos_tpu_torch.serving.caches import get_output_dir
 
 logger = logging.getLogger("zonos_tpu_torch")
+
+_OUTPUT_SEQ = itertools.count()
+
+
+def new_output_path() -> str:
+    """A new wav path in this process's output directory:
+    ``zonos_<ms>_<n>.wav``, n counting this process's requests, so that two
+    requests in one millisecond (or two processes, whose directories differ)
+    never share a file. JAX's pipeline names it ``zonos_<ms>.wav``."""
+    return os.path.join(get_output_dir(), f"zonos_{time.time_ns() // 1_000_000}_{next(_OUTPUT_SEQ)}.wav")
 
 
 class PerformanceTimer:
@@ -143,7 +154,7 @@ def generate_and_save_audio(
     sr = model.autoencoder.sampling_rate
 
     if output_path is None:
-        output_path = os.path.join(get_output_dir(), f"zonos_{time.time_ns() // 1_000_000}.wav")
+        output_path = new_output_path()
     write_wav(output_path, wav, sr)
 
     wall_s = (time.perf_counter_ns() - t_start) / 1e9
@@ -248,7 +259,7 @@ def _generate_longform(model, text, params, prefix_codes, cond_kw, cfg_scale, mi
             prev_tail = np.asarray(codes)[..., -min(tail_frames, codes.shape[-1]):]
     wav = np.concatenate(waves)
     if output_path is None:
-        output_path = os.path.join(get_output_dir(), f"zonos_{time.time_ns() // 1_000_000}.wav")
+        output_path = new_output_path()
     write_wav(output_path, wav, sr)
     wall_s = (time.perf_counter_ns() - t_start) / 1e9
     audio_s = wav.shape[-1] / sr

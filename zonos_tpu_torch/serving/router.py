@@ -181,7 +181,10 @@ def make_handler(pool: BackendPool, timeout_s: float = 600.0):
                         cw(self.send_header, "Transfer-Encoding", "chunked")
                         cw(self.end_headers)
                         while True:
-                            chunk = resp.read(32768)  # backend-side read
+                            # What the backend has sent, up to 32 KB: read()
+                            # would wait for a full 32 KB, holding back the
+                            # first PCM chunk (16 KB at 16 frames) until the next.
+                            chunk = resp.read1(32768)  # backend-side read
                             if not chunk:
                                 break
                             cw(self.wfile.write, f"{len(chunk):x}\r\n".encode())

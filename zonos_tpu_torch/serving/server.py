@@ -186,6 +186,22 @@ def _safe_speaker_name(name: str) -> str | None:
     return name
 
 
+def _write_atomic(path: str, data: bytes) -> None:
+    """Write ``data`` to a temporary file of this process and thread, then
+    rename it to ``path``: another server process in the same working
+    directory (one per card behind serving/router.py) sees the old file, no
+    file, or the whole new one, never a part."""
+    import os
+
+    from zonos_tpu_torch.serving.caches import writer_tag
+
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    tmp = f"{path}.{writer_tag()}.tmp"
+    with open(tmp, "wb") as f:
+        f.write(data)
+    os.replace(tmp, path)
+
+
 def save_speaker(name: str, wav_bytes: bytes) -> str:
     """Store an uploaded voice under speakers/uploads/<name>.wav."""
     import os
@@ -194,9 +210,7 @@ def save_speaker(name: str, wav_bytes: bytes) -> str:
     if safe is None:
         raise ValueError("speaker name must be [A-Za-z0-9_-]+ (optional / path)")
     path = os.path.join(_SPEAKERS_DIR, "uploads", *safe.split("/")) + ".wav"
-    os.makedirs(os.path.dirname(path), exist_ok=True)
-    with open(path, "wb") as f:
-        f.write(wav_bytes)
+    _write_atomic(path, wav_bytes)
     return "uploads/" + safe
 
 
@@ -227,10 +241,8 @@ def resolve_speaker_path(body: dict) -> str | None:
         raw = base64.b64decode(b64)
         digest = hashlib.sha1(raw).hexdigest()[:16]
         path = os.path.join("cache", "uploads", f"{digest}.wav")
-        if not os.path.exists(path):
-            os.makedirs(os.path.dirname(path), exist_ok=True)
-            with open(path, "wb") as f:
-                f.write(raw)
+        if not os.path.exists(path):  # content-addressed: any writer's file is this one
+            _write_atomic(path, raw)
         return path
     return None
 
