@@ -37,6 +37,7 @@ JAX_ONLY = {
     "parallel/mesh.py": {"batch_sharding", "replicated"},
     "runtime/generate.py": {"build_generate_fn", "seed_to_key"},
     "runtime/speculative.py": {"SpecCarry", "build_spec_generate_fn"},
+    "serving/pipeline.py": {"PerformanceTimer"},  # spans of utils/profiling's recorder instead
     "utils/profiling.py": {"xla_trace", "executable_memory_table"},
 }
 PALLAS = {"ops/pallas_matmul.py", "ops/pallas_attention.py"}  # ported as ops/cuda_matmul.py, ops/cuda_attention.py

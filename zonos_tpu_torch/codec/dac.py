@@ -26,6 +26,7 @@ import torch.nn.functional as F
 from zonos_tpu_torch import resolve_device
 from zonos_tpu_torch.audio.resample import resample_poly
 from zonos_tpu_torch.config import DACConfig
+from zonos_tpu_torch.utils import profiling
 
 logger = logging.getLogger("zonos_tpu_torch")
 HF_REPO_ID = "descript/dac_44khz"
@@ -330,6 +331,7 @@ class DACAutoencoder:
         z = quantizer_from_codes(self.params["quantizer"], codes, dtype=self.dtype)
         return decoder_forward(self.params["decoder"], z.to(self.dtype), self.config.upsampling_ratios).float()
 
+    @profiling.traced("codec.decode")
     def decode_device(self, codes, to_int16: bool = False) -> torch.Tensor:
         """[B, n_q, T] → PCM [B, T * hop] on the device: float32 in (-1, 1), or
         int16 (clip to ±32767 and truncate, as the JAX package does)."""

@@ -46,6 +46,7 @@ from zonos_tpu_torch.runtime.generate import (
     postprocess_codes_batched,
     prepare_request,
 )
+from zonos_tpu_torch.utils import profiling
 
 
 def _make_bias(statics: GenerateStatics, device) -> torch.Tensor:
@@ -65,6 +66,7 @@ def build_prefill_fn(statics: GenerateStatics):
     cfg = statics.cfg
     n_q = cfg.codebook_dimension
 
+    @profiling.traced("decode.prefill")
     def prefill_fn(params, cond_emb, delayed_init, prefix_frames: int, pad_amount, cfg_scale, generators,
                    rt_params=None, mesh=None):
         b = statics.batch_size
@@ -157,30 +159,43 @@ def build_segment_fn(statics: GenerateStatics):
         dev = c.delayed_codes.device
         bias = _make_bias(statics, dev)
         cb = torch.arange(n_q, device=dev)[None, :]
-        while (c.offset < statics.delayed_len and c.steps_done < max_steps and c.steps_done < segment_end
-               and (not early_exit or bool((c.remaining_steps > 0).any()))):
-            input_frame = c.delayed_codes[:, :, c.offset - 1:c.offset]
-            logits, c.cache = _decode_logits(
-                params, statics, input_frame, c.cache, statics.prefill_len + c.steps_done, pad_amount, cfg_scale,
-                pos_offset=pos_offset, gap_len=gap_len, mesh=mesh,
-            )
-            logits = logits + bias
-            ctx = valid = None
-            if use_rep:
-                ctx, valid = _context_slice(c.delayed_codes, c.offset, window)
-            if statics.runtime_sampling:
-                next_token = sample_from_logits_runtime(
-                    logits, rt_params, top_k=statics.sampling.top_k, generators=c.generators,
-                    generated_tokens=ctx, generated_valid_len=valid,
+
+        def bounded() -> bool:
+            return c.offset < statics.delayed_len and c.steps_done < max_steps and c.steps_done < segment_end
+
+        def any_left() -> bool:
+            # The early-exit read: waits for the device's queued work.
+            with profiling.span("decode.sync"):
+                return bool((c.remaining_steps > 0).any())
+
+        # One ``decode.step`` span per step; the read deciding whether the
+        # next step runs closes the step that precedes it.
+        running = bounded() and (not early_exit or any_left())
+        while running:
+            with profiling.span("decode.step"):
+                input_frame = c.delayed_codes[:, :, c.offset - 1:c.offset]
+                logits, c.cache = _decode_logits(
+                    params, statics, input_frame, c.cache, statics.prefill_len + c.steps_done, pad_amount,
+                    cfg_scale, pos_offset=pos_offset, gap_len=gap_len, mesh=mesh,
                 )
-            else:
-                next_token = sample_from_logits(
-                    logits, statics.sampling, generators=c.generators,
-                    generated_tokens=ctx, generated_valid_len=valid,
-                )
-            tp_agree(next_token, mesh)
-            _advance(c, next_token, cfg, cb)
-            c.steps_done += 1
+                logits = logits + bias
+                ctx = valid = None
+                if use_rep:
+                    ctx, valid = _context_slice(c.delayed_codes, c.offset, window)
+                if statics.runtime_sampling:
+                    next_token = sample_from_logits_runtime(
+                        logits, rt_params, top_k=statics.sampling.top_k, generators=c.generators,
+                        generated_tokens=ctx, generated_valid_len=valid,
+                    )
+                else:
+                    next_token = sample_from_logits(
+                        logits, statics.sampling, generators=c.generators,
+                        generated_tokens=ctx, generated_valid_len=valid,
+                    )
+                tp_agree(next_token, mesh)
+                _advance(c, next_token, cfg, cb)
+                c.steps_done += 1
+                running = bounded() and (not early_exit or any_left())
 
         # Status [offset, steps_done, all_stopped, lengths[B], drained[B]] and
         # the sanitized de-delayed codes, as the JAX segment returns them.

@@ -24,6 +24,7 @@ batcher returns float32; the JAX engine int16).
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import logging
 import os
 import queue
@@ -36,8 +37,46 @@ import numpy as np
 from zonos_tpu_torch.conditioning.cond_dict import make_cond_dict
 from zonos_tpu_torch.ops.sampling import SamplingParams
 from zonos_tpu_torch.serving import metrics
+from zonos_tpu_torch.utils import profiling
 
 logger = logging.getLogger("zonos_tpu_torch")
+
+# A /stream request served by the continuous engine, from its read to its
+# first PCM byte written: (stage, the mark it starts at, the mark it ends at).
+# The six tile that time with no gap and no overlap.
+STREAM_STAGES = (
+    ("front.read", "read", "queued"),
+    ("prep", "queued", "prepped"),
+    ("engine.join_wait", "prepped", "joined"),
+    ("engine.first_audio", "joined", "planned"),
+    ("ship", "planned", "shipped"),
+    ("front.write", "shipped", "written"),
+)
+_REQUEST_IDS = itertools.count(1)
+
+
+class RequestTrace:
+    """One served request: its id, and the first instant
+    (``perf_counter_ns``) at each of its stage boundaries, on whatever
+    thread reached it."""
+
+    __slots__ = ("id", "marks")
+
+    def __init__(self):
+        self.id = next(_REQUEST_IDS)
+        self.marks = {"read": time.perf_counter_ns()}
+
+    def mark(self, boundary: str) -> None:
+        """The instant the request first reaches ``boundary``; later ones are kept out."""
+        if boundary not in self.marks:
+            self.marks[boundary] = time.perf_counter_ns()
+
+    def record_stages(self) -> None:
+        """Record each of ``STREAM_STAGES`` whose two marks were reached, as
+        spans of this request under the span open on the calling thread."""
+        for name, a, b in STREAM_STAGES:
+            if a in self.marks and b in self.marks:
+                profiling.record(name, self.marks[a], self.marks[b], req=self.id)
 
 
 @dataclasses.dataclass
@@ -67,6 +106,9 @@ class TTSRequest:
     # request's per-sample PCM chunks through ``chunks`` (None sentinel =
     # stream complete). Stream and non-stream requests never coalesce.
     stream: bool = False
+    # The served request's id and the instants at its stage boundaries
+    # (``RequestTrace``), where the server made one.
+    trace: RequestTrace | None = None
 
     # filled by the batcher
     _event: threading.Event = dataclasses.field(default_factory=threading.Event)

@@ -40,6 +40,12 @@ defaults:
   prep thread. It queues CUDA work on the same stream as the worker, and
   touches no kernel's per-device state (K3's scratch is guarded per stream,
   ``ops/cuda_matmul``).
+* **Spans** (``utils/profiling``): the loop records ``engine.dispatch``
+  (counters ``rung`` and ``active``), ``engine.mutate`` and
+  ``engine.absorb`` (``engine.harvest``, ``engine.status_wait``,
+  ``engine.plan``, ``engine.retire``); the prep thread ``prep.run``, the
+  shipper ``ship.readback``. A request the server made a ``RequestTrace``
+  for is marked as it is queued, prepped, joined, planned and shipped.
 
 Sampling parameters and cfg_scale are per-slot runtime values
 (``RuntimeSamplingParams`` and a [B] cfg vector, set at joins), so one epoch
@@ -79,10 +85,29 @@ from zonos_tpu_torch.runtime.generate import (
 )
 from zonos_tpu_torch.serving import metrics
 from zonos_tpu_torch.serving.batcher import DynamicBatcher, TTSRequest
+from zonos_tpu_torch.utils import profiling
 
 logger = logging.getLogger("zonos_tpu_torch")
 
 BIG = np.iinfo(np.int32).max
+
+
+def _req_id(req: TTSRequest) -> int | None:
+    return req.trace.id if req.trace is not None else None
+
+
+def _mark(req: TTSRequest, boundary: str) -> None:
+    """The instant ``req`` first reaches a stage boundary (``batcher.STREAM_STAGES``)."""
+    if req.trace is not None:
+        req.trace.mark(boundary)
+
+
+def _readback(pcm_dev: torch.Tensor, reqs: list) -> np.ndarray:
+    """The blocking PCM readback, recorded for the first request in
+    ``reqs`` whose first audio it carries."""
+    first = next((r for r in reqs if r.trace is not None and "shipped" not in r.trace.marks), None)
+    with profiling.span("ship.readback", req=_req_id(first) if first else None):
+        return pcm_dev.cpu().numpy()
 
 
 @dataclasses.dataclass
@@ -211,14 +236,16 @@ class ContinuousEngine:
             kind = item[0]
             if kind == "pcm":
                 _, pcm_dev, rows, lo0, sr = item
-                pcm = pcm_dev.cpu().numpy()
+                pcm = _readback(pcm_dev, [r[0] for r in rows])
                 hop = self._hop
                 for req, slot, lo, hi in rows:
+                    _mark(req, "shipped")
                     req.chunks.put((pcm[slot, (lo - lo0) * hop:(hi - lo0) * hop], sr))
             elif kind == "solo":
                 _, pcm_dev, req, lo0, base, hi, sr = item
-                pcm = pcm_dev.cpu().numpy()
+                pcm = _readback(pcm_dev, [req])
                 hop = self._hop
+                _mark(req, "shipped")
                 req.chunks.put((pcm[(base - lo0) * hop:(hi - lo0) * hop], sr))
             elif kind == "finish":
                 self._finish(item[1])
@@ -240,6 +267,7 @@ class ContinuousEngine:
         under the serving default (quantized on the device; ZONOS_PCM_INT16=0
         for float32); every sink (wav writer, HTTP PCM16) takes both."""
         request.stream = False
+        _mark(request, "queued")
         self._queue.put(request)
         deadline = time.monotonic() + timeout
         pieces = []
@@ -265,6 +293,7 @@ class ContinuousEngine:
     def submit_stream(self, request: TTSRequest, timeout: float = 600.0):
         """Streaming submit: yields (pcm [T] float32, sample_rate) chunks."""
         request.stream = True
+        _mark(request, "queued")
         self._queue.put(request)
         while True:
             try:
@@ -354,13 +383,15 @@ class ContinuousEngine:
                         f"capacity {self.delayed_len - n_q - 3}"
                     ))
                     continue
-                prep = self._prep(req)
+                with profiling.span("prep.run", req=_req_id(req)):
+                    prep = self._prep(req)
                 if prep is None:
                     self._finish(req, error=ValueError(
                         f"conditioning too long for engine prefill bucket "
                         f"{self.prefill_len}"
                     ))
                     continue
+                _mark(req, "prepped")
                 self._prepped.put((req, prep))
             except Exception as e:  # pragma: no cover - defensive
                 self._finish(req, error=e)
@@ -461,6 +492,7 @@ class ContinuousEngine:
         def free_slots():
             return [i for i, s in enumerate(slot_states) if not s.active]
 
+        @profiling.traced("engine.harvest")
         def harvest():
             """Admission phase 1 — everything that does NOT need boundary
             state: drain the PREPPED queue (conditioning/G2P already done by
@@ -497,6 +529,7 @@ class ContinuousEngine:
                 ready.append((req, c1, pad, rt1, prep))
             pending[:] = keep
 
+        @profiling.traced("engine.mutate")
         def mutate():
             """Between-segment device mutations: KV compaction, then joins.
             All queue on the device stream after the last dispatched segment;
@@ -551,6 +584,7 @@ class ContinuousEngine:
                     keep.append((req, c1, pad, rt1, prep))
                     continue
                 slot = free[0]
+                _mark(req, "joined")
                 carry, pos_offset, gap_len, pad_amount = join(
                     carry, c1, slot, pos_offset, gap_len, pad_amount, (pad, pad),
                 )
@@ -613,34 +647,31 @@ class ContinuousEngine:
             rung = self._attend_rung(segend_g - rolled)
             segment = compiled_segment_attend(statics, rung)
             steps_before = carry.steps_done
-            with torch.no_grad():
+            with profiling.span("engine.dispatch", rung=rung,
+                                active=sum(st.active for st in slot_states)), torch.no_grad():
                 carry, st_dev, codes_dev = segment(
                     model.params, carry, pad_amount, cfg_vec, max_need - rolled, segend_g - rolled,
                     pos_offset, gap_len, rt_dev, early_exit=False,
                 )
             self.stats["steps"] += carry.steps_done - steps_before
-            pipeline.append((st_dev, codes_dev, rolled, frolled, [], seg, rung))
+            pipeline.append((st_dev, codes_dev, rolled, frolled, []))
 
-        trace = os.environ.get("ZONOS_ENGINE_TRACE") == "1"
-
+        @profiling.traced("engine.absorb")
         def absorb():
             """Read the oldest in-flight segment's status; ship PCM; retire
             slots; confirm joiners whose boundary this status reveals."""
             nonlocal offset, steps_g, emitted_global, carry, stall
-            status_dev, device_codes, rolled_snap, frolled_snap, confirm_slots, seg, rung = (
-                pipeline.pop(0)
-            )
-            t0 = time.perf_counter()
+            status_dev, device_codes, rolled_snap, frolled_snap, confirm_slots = pipeline.pop(0)
             # Overlap admission host work (queue drain, G2P prep, prefill
             # dispatch) with the in-flight segments…
             harvest()
-            t1 = time.perf_counter()
             # …then block on the segment's status readback. Every frame
             # quantity the device reports is in its ROLLED coordinates; the
             # per-dispatch frolled snapshot converts to the host's GLOBAL
             # frame timeline (the step analogue is rolled_snap).
-            sv = status_dev.cpu().numpy()
-            t2 = time.perf_counter()
+            with profiling.span("engine.status_wait"):
+                sv = status_dev.cpu().numpy()
+            t_plan = time.perf_counter_ns()
             new_offset = int(sv[0]) + frolled_snap
             steps_dev = int(sv[1])
             progressed = new_offset > offset
@@ -754,13 +785,17 @@ class ContinuousEngine:
                         rows.append((st.req, i, lo, hi))
                         st.emitted += (hi - lo) * hop_
                 if rows:
+                    for req, *_ in rows:
+                        _mark(req, "planned")
                     self._ship_q.put(("pcm", pcm_dev, rows, lo0, sr))
             emitted_global = q
             for i, lo0, hi, pcm_dev in solos:
                 st = slot_states[i]
+                _mark(st.req, "planned")
                 self._ship_q.put(("solo", pcm_dev, st.req, lo0, st.base, hi, sr))
                 st.emitted += (hi - st.base) * hop_
-            t3 = time.perf_counter()
+            t_retire = time.perf_counter_ns()
+            profiling.record("engine.plan", t_plan, t_retire)
 
             # Retire slots: EOS drained, or token budget exhausted. The
             # terminal None routes through the shipper so it lands AFTER
@@ -818,15 +853,7 @@ class ContinuousEngine:
                         f"engine stalled: offset={offset} steps={steps_g} "
                         f"active={sum(s.active for s in slot_states)}"
                     )
-            if trace:
-                t4 = time.perf_counter()
-                logger.warning(
-                    "seg=%d rung=%d steps=%d rolled=%d active=%d quanta=%d "
-                    "harvest=%.3f readback=%.3f ship=%.3f retire=%.3f",
-                    seg, rung, steps_g, rolled,
-                    sum(s.active for s in slot_states),
-                    len(quanta), t1 - t0, t2 - t1, t3 - t2, t4 - t3,
-                )
+            profiling.record("engine.retire", t_retire, time.perf_counter_ns())
 
         try:
             harvest()

@@ -29,6 +29,7 @@ from zonos_tpu_torch.serving import constants as C
 from zonos_tpu_torch.serving import longform
 from zonos_tpu_torch.serving.audio_prep import process_prefix_audio, process_speaker_audio
 from zonos_tpu_torch.serving.caches import get_output_dir
+from zonos_tpu_torch.utils import profiling
 
 logger = logging.getLogger("zonos_tpu_torch")
 
@@ -41,25 +42,6 @@ def new_output_path() -> str:
     requests in one millisecond (or two processes, whose directories differ)
     never share a file. JAX's pipeline names it ``zonos_<ms>.wav``."""
     return os.path.join(get_output_dir(), f"zonos_{time.time_ns() // 1_000_000}_{next(_OUTPUT_SEQ)}.wav")
-
-
-class PerformanceTimer:
-    """Wall-clock span logger with a millisecond reporting threshold."""
-
-    def __init__(self, name: str, threshold_ms: float = 1.0):
-        self.name = name
-        self.threshold_ms = threshold_ms
-        self.elapsed_ms = 0.0
-
-    def __enter__(self):
-        self._t0 = time.perf_counter_ns()
-        return self
-
-    def __exit__(self, *exc):
-        self.elapsed_ms = (time.perf_counter_ns() - self._t0) / 1e6
-        if self.elapsed_ms >= self.threshold_ms:
-            logger.debug(f"{self.name}: {self.elapsed_ms:.1f} ms")
-        return False
 
 
 @dataclass
@@ -100,14 +82,14 @@ def setup_speaker_conditioning(
 ) -> np.ndarray | None:
     if not speaker_audio_path:
         return None
-    with PerformanceTimer("speaker_conditioning"):
+    with profiling.span("pipeline.speaker"):
         return process_speaker_audio(speaker_audio_path, model_name, use_cache=use_cache, device=device)
 
 
 def setup_prefix_audio(prefix_audio_path: str | None, autoencoder, use_cache: bool = True):
     if not prefix_audio_path:
         return None
-    with PerformanceTimer("prefix_audio"):
+    with profiling.span("pipeline.prefix"):
         return process_prefix_audio(prefix_audio_path, autoencoder, use_cache=use_cache)
 
 
@@ -118,7 +100,8 @@ def _generate_wave(model, cond_dict, params, audio_prefix_codes, use_cond_cache,
     decode loop is still going (same tokens and lengths as ``generate`` +
     ``decode``).
     """
-    conditioning = model.prepare_conditioning(cond_dict, use_cache=use_cond_cache, cfg_scale=params.cfg_scale)
+    with profiling.span("pipeline.conditioning"):
+        conditioning = model.prepare_conditioning(cond_dict, use_cache=use_cond_cache, cfg_scale=params.cfg_scale)
     wav, lengths = model.generate_audio(
         conditioning,
         audio_prefix_codes=audio_prefix_codes,
@@ -155,7 +138,8 @@ def generate_and_save_audio(
 
     if output_path is None:
         output_path = new_output_path()
-    write_wav(output_path, wav, sr)
+    with profiling.span("pipeline.write_wav"):
+        write_wav(output_path, wav, sr)
 
     wall_s = (time.perf_counter_ns() - t_start) / 1e9
     audio_s = wav.shape[-1] / sr

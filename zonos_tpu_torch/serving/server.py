@@ -3,7 +3,8 @@
 A dependency-free stdlib ``ThreadingHTTPServer`` with JAX's routes:
 
   GET  /health, /models, /languages, /conditioners, /ui_spec, /lexicon,
-       /speakers, /metrics (Prometheus text), / (the web UI)
+       /speakers, /metrics (Prometheus text), / (the web UI),
+       /trace (the span recorder's ring, Chrome trace-event JSON)
   POST /generate  (JSON body) → WAV bytes; ``text="ping"`` → 100 ms of
        silence (SkyrimNet's health check)
   POST /stream    (JSON body) → chunked raw PCM16 (little-endian mono;
@@ -19,6 +20,10 @@ int8-quantized (K1-K3); ``ZONOS_PLATFORM=cpu`` asks for the CPU, and
 without it the server raises where there is no card.
 
     python -m zonos_tpu_torch.serving.server --port 7860
+
+SIGTERM stops the server as Ctrl-C does; on the way out it writes the span
+recorder's ring to ``<output dir>/spans.json`` (``utils/profiling.py``;
+``ZONOS_TRACE=0`` turns the recorder off).
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ import argparse
 import io
 import json
 import logging
+import signal
 import struct
 import threading
 import wave
@@ -37,11 +43,21 @@ import numpy as np
 from zonos_tpu_torch.serving import constants as C
 from zonos_tpu_torch.serving import metrics
 from zonos_tpu_torch.serving.app_config import load_config, setup_logging
+from zonos_tpu_torch.serving.batcher import RequestTrace
 from zonos_tpu_torch.serving.model_manager import get_supported_models, load_model_if_needed, serving_device
 from zonos_tpu_torch.serving.pipeline import tts
+from zonos_tpu_torch.utils import profiling
 
 _GEN_SEMAPHORE = threading.Semaphore(C.CONCURRENCY_LIMIT)
 _APP_CONFIG: dict = {}
+# The request the handler thread serves (``batcher.RequestTrace``, made in
+# ``Handler._post``); ``handle_stream`` and ``handle_generate`` read it here,
+# so their signatures stay ``(body)``.
+_LOCAL = threading.local()
+
+
+def _current_trace() -> RequestTrace | None:
+    return getattr(_LOCAL, "trace", None)
 
 
 def _silence_wav(ms: int = 100, sr: int = 44100) -> bytes:
@@ -299,6 +315,7 @@ def handle_generate(body: dict) -> tuple[bytes, dict]:
                 sampling=SamplingParams(**params.sampling),
                 unconditional_keys=controls["unconditional_keys"],
                 no_batch=bool(body.get("no_batch", False)),
+                trace=_current_trace(),
             )
         )
         rtf = (wav.shape[0] / sr) / max(_time.perf_counter() - t0, 1e-9)
@@ -382,6 +399,7 @@ def handle_stream(body: dict):
             sampling=SamplingParams(**params.sampling),
             unconditional_keys=controls["unconditional_keys"],
             no_batch=bool(body.get("no_batch", False)),
+            trace=_current_trace(),
         )
         for wav, sr in batcher.submit_stream(req):
             if wav.dtype == np.int16:  # engine ships device-quantized PCM
@@ -515,6 +533,9 @@ class Handler(BaseHTTPRequestHandler):
                 200, "text/plain; version=0.0.4; charset=utf-8",
                 metrics.REGISTRY.render().encode(),
             )
+        elif self.path == "/trace":
+            # The span recorder's ring as Chrome trace-event JSON (utils/profiling.py).
+            self._send(200, "application/json", json.dumps(profiling.RECORDER.chrome_trace()).encode())
         else:
             self._json(404, {"error": "not found"})
 
@@ -528,12 +549,23 @@ class Handler(BaseHTTPRequestHandler):
             metrics.observe_request(self.path, self._status, _time.perf_counter() - t0)
 
     def _post(self):
+        # This request's id and stage instants: spans opened on this thread
+        # carry the id, and the engine marks the stages it reaches.
+        _LOCAL.trace = rt = RequestTrace()
+        try:
+            with profiling.attach(rt.id), profiling.span("request", endpoint=self.path):
+                self._route(rt)
+        finally:
+            _LOCAL.trace = None
+
+    def _route(self, rt: RequestTrace):
         if self.path == "/generate":
             try:
                 length = int(self.headers.get("Content-Length", 0))
                 body = json.loads(self.rfile.read(length) or b"{}")
                 wav_bytes, meta = handle_generate(body)
-                self._send(200, "audio/wav", wav_bytes, {"X-Zonos-Meta": json.dumps(meta)})
+                with profiling.span("front.write"):
+                    self._send(200, "audio/wav", wav_bytes, {"X-Zonos-Meta": json.dumps(meta)})
             except ValueError as e:
                 # Client errors (unknown speaker name, malformed fields).
                 self._json(400, {"error": str(e)})
@@ -569,6 +601,9 @@ class Handler(BaseHTTPRequestHandler):
                     self.wfile.write(b"\r\n")
 
                 write_chunk(first_chunk)
+                # Read → first byte in six stages, where the engine served it.
+                rt.mark("written")
+                rt.record_stages()
                 for data, _sr in gen:
                     write_chunk(data)
                 self.wfile.write(b"0\r\n\r\n")
@@ -707,6 +742,7 @@ def main(argv=None):
     global _APP_CONFIG, _SERVER
     _APP_CONFIG = load_config()
     logger = setup_logging(_APP_CONFIG)
+    profiling.configure_tracing(_APP_CONFIG)
 
     if args.lexicon:
         from zonos_tpu_torch.conditioning import lexicon as _lex
@@ -741,11 +777,17 @@ def main(argv=None):
 
     if args.warmup or os.environ.get("ZONOS_WARMUP") == "1":
         logger.info("warmup: one generate and one stream ...")
-        dt = warmup(args.model)
+        with profiling.span("server.warmup"):
+            dt = warmup(args.model)
         logger.info(f"warmup done in {dt:.1f}s; first request is steady-state")
 
     server = ThreadingHTTPServer((args.server, args.port), Handler)
     _SERVER = server
+    # SIGTERM stops the server as Ctrl-C does. A signal handler can only be
+    # installed from the main thread; a caller running main() in another
+    # thread stops it with _SERVER.shutdown().
+    if threading.current_thread() is threading.main_thread():
+        signal.signal(signal.SIGTERM, _interrupt)
     logger.info(f"Zonos (PyTorch/CUDA) serving on http://{args.server}:{args.port}")
     try:
         server.serve_forever()
@@ -753,6 +795,15 @@ def main(argv=None):
         server.shutdown()
     finally:
         server.server_close()
+        if profiling.RECORDER.enabled:
+            from zonos_tpu_torch.serving.caches import get_output_dir
+
+            path = profiling.RECORDER.write_chrome_trace(os.path.join(get_output_dir(), "spans.json"))
+            logger.info(f"spans written to {path}")
+
+
+def _interrupt(signum, frame):
+    raise KeyboardInterrupt
 
 
 if __name__ == "__main__":
