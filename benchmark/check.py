@@ -1,10 +1,12 @@
 """The comparison that decides ``correct``, run once the server has exited.
 
 For every greedy request the run finished (``min_p`` 1.0: the served token
-is the sampler's best), the reference (``benchmark.reference``) works out
-again from the seed and the run's inputs what the program derived: the
-weights, the speaker embedding of the request's voice, the conditioning,
-and the backbone over the prompt and the served frames (teacher forcing).
+is the sampler's best), or the run's sample of them (``run.check_sample``),
+the reference (the configuration's module of ``benchmark/reference``,
+``spec.reference``) works out again from the seed and the run's inputs what
+the program derived: the weights, the speaker embedding of the request's
+voice, the conditioning, and the backbone over the prompt and the served
+frames (teacher forcing).
 It reads two numbers:
 
 * ``token_gap``: the widest gap by which a served token's logit lies below
@@ -35,9 +37,10 @@ import sys
 import numpy as np
 import torch
 
+from benchmark import spec
 from benchmark.reference.codec import DACReference, SpeakerReference
-from benchmark.reference.model import ZonosReference, compared_mask, delay, sampler_logits
-from benchmark.weights import make_voice, make_weights
+from benchmark.reference.model import compared_mask, delay, sampler_logits
+from benchmark.weights import checksum, make_voice, make_weights
 
 HOP = 512
 BUCKET = 128
@@ -83,21 +86,24 @@ def run(doc: dict, seed: int, device, served: dict, phonemes: dict, results: dic
         control: bool = False) -> dict:
     """``served``: the wrapper's bench_id → {codes, chunks, unmatched, windows, where};
     ``results``: bench_id → the client's record (PCM); ``texts``/``voices``:
-    bench_id → the request's text and voice. Returns the readings."""
+    bench_id → the request's text and voice. Returns the readings, with the
+    digest of the weights made again (``weight_checksum``), which every
+    backend's has to equal."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = doc["config"]
     s = doc["serving"]
     w = make_weights(doc, seed, device)
-    zref = ZonosReference(doc, w["zonos"], device, bits=8)
-    zctl = ZonosReference(doc, w["zonos"], device, bits=4) if control else None
+    model = spec.reference(doc).Reference
+    zref = model(doc, w["zonos"], device, bits=8)
+    zctl = model(doc, w["zonos"], device, bits=4) if control else None
     dref = DACReference(doc, w["dac"], device)
     dctl = DACReference(doc, w["dac"], device, fp8=True) if control else None
     sref = SpeakerReference(doc, w["speaker"], w["lda"], device)
     values = cond_values(doc)
     embeds: dict = {}
     out = {"token_gap": 0.0, "pcm_err": 0.0, "unmatched": 0, "requests": 0, "tokens": 0, "frames": 0,
-           "control_token_gap": 0.0, "control_pcm_err": 0.0}
+           "control_token_gap": 0.0, "control_pcm_err": 0.0, "weight_checksum": checksum(w)}
     n_q, masked, eos = cfg["codebook_dimension"], cfg["masked_token_id"], cfg["eos_token_id"]
     for rid, sv in sorted(served.items(), key=lambda kv: int(kv[0])):
         rid = int(rid)

@@ -3,7 +3,8 @@ server sustains without a growing backlog.
 
     python3 benchmark/knee.py --workload <name> --seed <n> --seconds <s> --rates 0.6,0.8,1.0
 
-One server (as ``run.py`` starts it) serves the cell's mix at each rate in
+The cell's server, or its fleet of servers behind the router (as ``run.py``
+starts them), serves the cell's mix at each rate in
 turn for ``--seconds`` seconds, every request followed to its end before the
 next rate starts. For each rate it prints one JSON line: the requests, the
 failures, the TTFA's median and 90th percentile, and the backlog's growth,
@@ -29,7 +30,7 @@ sys.path[:] = [p for p in sys.path if os.path.abspath(p or ".") != HERE]
 sys.path.insert(0, REPO)
 
 from benchmark import client, spec, traffic  # noqa: E402
-from benchmark.run import START_TIMEOUT_S, Server, p90  # noqa: E402
+from benchmark.run import START_TIMEOUT_S, Fleet, p90  # noqa: E402
 
 
 def slope_ms_per_s(xs: list, ys: list) -> float:
@@ -55,8 +56,8 @@ def main(argv=None) -> int:
     work_root = os.path.join(os.environ.get("TMPDIR") or os.path.join(REPO, "benchmark_out"), "zonos-knee")
     shutil.rmtree(work_root, ignore_errors=True)
     os.makedirs(work_root)
-    server = Server(cfg_path, args.seed, os.path.join(work_root, "server"), cell, doc["model_choice"], False, "cuda",
-                    "", os.path.join(work_root, "server.log"))
+    server = Fleet(cfg_path, args.seed, os.path.join(work_root, "server"), cell, doc["model_choice"], False, "cuda",
+                   "", work_root, w["chips"])
     knee = None
     try:
         server.wait_ready(START_TIMEOUT_S)

@@ -1,7 +1,7 @@
 """Plain float32 reference of Zonos-v0.1 (transformer and Mamba2 hybrid).
 
 Written from the published architecture, on the reference state dict that
-``benchmark.weights`` makes: the prefix conditioner, the backbone over the
+``benchmark.weights`` makes from ``weight_specs``: the prefix conditioner, the backbone over the
 whole sequence without a cache, the nine heads, classifier-free guidance and
 the serving sampler's logit rules (EOS only in codebook 0 at -log 2 after the
 first frame, the repetition penalty over the last two delayed positions).
@@ -97,6 +97,89 @@ def ssd_scan(x, dt, A, B, C, chunk: int = 64):
         to_end = torch.exp(cum[-1][None, :] - cum)  # [T, H]
         state = state * torch.exp(cum[-1])[:, None, None] + torch.einsum("thn,th,thp->hnp", B[lo:hi], to_end, xdt)
     return y
+
+
+def weight_specs(cfg: dict, phoneme_vocab: int) -> list:
+    """The reference state dict's tensors as ``benchmark.weights`` makes them:
+    (name, shape, init) entries, init ("normal", std), ("const", value) or
+    ("fn", callable(generator, shape, device) -> float32 tensor)."""
+    bb = cfg["backbone"]
+    d = bb["d_model"]
+    n_q = cfg["codebook_dimension"]
+    hq, hkv = bb["attn_cfg"]["num_heads"], bb["attn_cfg"]["num_heads_kv"]
+    dh = bb["attn_cfg"].get("head_dim") or d // hq
+    head_vocab = cfg["eos_token_id"] + 1
+    specs = []
+    for k in range(n_q):
+        specs.append((f"embeddings.{k}.weight", (cfg["masked_token_id"] + 1, d), ("normal", 1.0)))
+    for k in range(n_q):
+        specs.append((f"heads.{k}.weight", (head_vocab, d), ("normal", 4.0 / math.sqrt(d))))
+
+    def norm(prefix):
+        return [(f"{prefix}.weight", (d,), ("const", 1.0)), (f"{prefix}.bias", (d,), ("const", 0.0))]
+
+    def mlp(base, f):
+        return norm(f"{base}.norm2") + [(f"{base}.mlp.fc1.weight", (2 * f, d), ("normal", 1 / math.sqrt(d))),
+                                        (f"{base}.mlp.fc2.weight", (d, f), ("normal", 1 / math.sqrt(f)))]
+
+    ssm = bb.get("ssm_cfg")
+    attn_idx = set(bb["attn_layer_idx"])
+    for i in range(bb["n_layer"]):
+        base = f"backbone.layers.{i}"
+        m = f"{base}.mixer"
+        specs += norm(f"{base}.norm")
+        if not ssm or i in attn_idx:
+            specs += [(f"{m}.in_proj.weight", ((hq + 2 * hkv) * dh, d), ("normal", 1 / math.sqrt(d))),
+                      (f"{m}.out_proj.weight", (d, hq * dh), ("normal", 1 / math.sqrt(hq * dh)))]
+            specs += mlp(base, bb["attn_mlp_d_intermediate"])
+            continue
+        d_inner = ssm["expand"] * d
+        nheads = d_inner // ssm["headdim"]
+        conv_dim = d_inner + 2 * ssm["ngroups"] * ssm["d_state"]
+        d_in_proj = 2 * d_inner + 2 * ssm["ngroups"] * ssm["d_state"] + nheads
+        specs += [
+            (f"{m}.in_proj.weight", (d_in_proj, d), ("normal", 1 / math.sqrt(d))),
+            (f"{m}.conv1d.weight", (conv_dim, 1, ssm["d_conv"]), ("normal", 0.2)),
+            (f"{m}.conv1d.bias", (conv_dim,), ("const", 0.0)),
+            (f"{m}.dt_bias", (nheads,), ("fn", _dt_bias)),
+            (f"{m}.A_log", (nheads,), ("fn", _a_log)),
+            (f"{m}.D", (nheads,), ("const", 1.0)),
+            (f"{m}.norm.weight", (d_inner,), ("const", 1.0)),
+            (f"{m}.out_proj.weight", (d, d_inner), ("normal", 1 / math.sqrt(d_inner))),
+        ]
+        if bb["d_intermediate"]:
+            specs += mlp(base, bb["d_intermediate"])
+    specs += norm("backbone.norm_f")
+
+    for i, c in enumerate(cfg["prefix_conditioner"]["conditioners"]):
+        base = f"prefix_conditioner.conditioners.{i}"
+        if c["type"] == "EspeakPhonemeConditioner":
+            specs.append((f"{base}.phoneme_embedder.weight", (phoneme_vocab, d), ("normal", 1.0)))
+        elif c["type"] == "FourierConditioner":
+            specs.append((f"{base}.weight", (d // 2, c["input_dim"]), ("normal", c["std"])))
+        elif c["type"] == "IntegerConditioner":
+            specs.append((f"{base}.int_embedder.weight", (int(c["max_val"]) - int(c["min_val"]) + 1, d),
+                          ("normal", 1.0)))
+        if c["projection"] == "linear":
+            cd = c["cond_dim"] or d
+            specs += [(f"{base}.project.weight", (d, cd), ("normal", 1 / math.sqrt(cd))),
+                      (f"{base}.project.bias", (d,), ("const", 0.0))]
+        if c["uncond_type"] == "learned":
+            specs.append((f"{base}.uncond_vector", (d,), ("normal", 1.0)))
+    specs += [("prefix_conditioner.norm.weight", (d,), ("const", 1.0)),
+              ("prefix_conditioner.norm.bias", (d,), ("const", 0.0))]
+    return specs
+
+
+def _dt_bias(gen, shape, device):
+    """Mamba2's dt init: log-uniform in [0.001, 0.1], stored as its inverse softplus."""
+    u = torch.rand(shape, generator=gen, dtype=torch.float32, device=device)
+    dt = torch.exp(u * (math.log(0.1) - math.log(0.001)) + math.log(0.001))
+    return dt + torch.log(-torch.expm1(-dt))
+
+
+def _a_log(gen, shape, device):
+    return torch.log(torch.linspace(1.0, 16.0, shape[0], dtype=torch.float32, device=device))
 
 
 class ZonosReference:
@@ -225,6 +308,9 @@ class ZonosReference:
             h = self.hidden(torch.cat([cond[row], emb]))[lc: lc + delayed.shape[1]]
             out.append((h @ heads.T).reshape(h.shape[0], self.n_q, -1))
         return out[1] + (out[0] - out[1]) * cfg_scale
+
+
+Reference = ZonosReference
 
 
 def delay(codes: np.ndarray, masked: int) -> np.ndarray:

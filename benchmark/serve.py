@@ -15,7 +15,9 @@ a run writes no 3 GB checkpoint to disk, and everything after the read
 
 It records, from its own code around calls into the program: the phoneme ids
 the text front end made, every DAC decode's codes and PCM, the PCM each
-request was sent, and the continuous engine's counters. With ``--trace`` it
+request was sent, when each /stream request arrived and when its first chunk
+went to the HTTP layer, and the continuous engine's counters; and a checksum
+of the weights it made (``weight_checksum``). With ``--trace`` it
 also opens ``record_function`` ranges (and keeps their host times) around
 the engine's segment dispatch and conditioning prep, the decode segments and
 prefills of the request loops, ``pipeline.tts``, the codec's decode and the
@@ -44,7 +46,7 @@ if REPO not in sys.path:
     sys.path.insert(0, REPO)
 
 from benchmark import isolation  # noqa: E402
-from benchmark.weights import make_voice, make_weights  # noqa: E402
+from benchmark.weights import checksum, make_voice, make_weights  # noqa: E402
 
 DAC_REPO = "descript/dac_44khz"
 SPEAKER_REPO = "Zyphra/Zonos-v0.1-speaker-embedding"
@@ -65,6 +67,7 @@ class Watch:
         self.recording = False
         self.records: list = []  # (codes [B, n_q, T] int32, pcm [B, T·hop] int16), on the device
         self.sent: dict = {}  # bench_id → list of PCM byte chunks as sent
+        self.handed: dict = {}  # bench_id → when its first chunk went to the HTTP layer (perf_counter s; None before)
         self.phonemes: dict = {}  # text → phoneme ids (left-padded as the model saw them)
         self.engine = None
         self.ranges: list = []  # (name, thread, start ns, end ns) of every ranged call
@@ -92,17 +95,26 @@ class Watch:
                 self._done.put((False, e))
 
 
+def _put(path: str, data: bytes) -> None:
+    """Writes a file whole: the backends of a fleet write the same files into
+    one working directory at once, and none may read another's half-written one."""
+    tmp = f"{path}.{os.getpid()}"
+    with open(tmp, "wb") as f:
+        f.write(data)
+    os.replace(tmp, path)
+
+
 def _write_setup(work: str, doc: dict, seed: int) -> dict:
-    """configmodel.txt, voices and the empty checkpoint files; returns path → loader key."""
+    """configmodel.txt, voices and the empty checkpoint files; returns path → loader key.
+    The checkpoint's key in configmodel.txt is the configuration's ``path_key``,
+    or the Zonos-v0.1 key its ``model_choice`` implies."""
     os.makedirs(work, exist_ok=True)
     model_dir = os.path.join(work, "model")
     os.makedirs(model_dir, exist_ok=True)
-    with open(os.path.join(model_dir, "config.json"), "w") as f:
-        json.dump(doc["config"], f)
-    hybrid = "hybrid" in doc["model_choice"]
-    with open(os.path.join(work, "configmodel.txt"), "w") as f:
-        f.write(f"PATH_MODEL_{'HYBRID' if hybrid else 'TRANSFORMER'} = {model_dir}\n")
-        f.write(f"PATH_NEEDED_HFHOME = {os.path.join(work, 'hf')}\n")
+    _put(os.path.join(model_dir, "config.json"), json.dumps(doc["config"]).encode())
+    key = doc.get("path_key") or f"PATH_MODEL_{'HYBRID' if 'hybrid' in doc['model_choice'] else 'TRANSFORMER'}"
+    _put(os.path.join(work, "configmodel.txt"),
+         f"{key} = {model_dir}\nPATH_NEEDED_HFHOME = {os.path.join(work, 'hf')}\n".encode())
     files = {os.path.join(model_dir, "model.safetensors"): "zonos"}
     for repo, names, keys in ((DAC_REPO, ("model.safetensors",), ("dac",)),
                               (SPEAKER_REPO, SPEAKER_FILES, ("speaker", "lda"))):
@@ -111,16 +123,18 @@ def _write_setup(work: str, doc: dict, seed: int) -> dict:
         for name, key in zip(names, keys):
             files[os.path.join(snap, name)] = key
     for path in files:
-        open(path, "wb").close()
+        open(path, "ab").close()
     voices = os.path.join(work, "speakers", "en")
     os.makedirs(voices, exist_ok=True)
     for i in range(doc["voices"]):
         pcm = make_voice(seed, i, sr=doc["speaker"]["sample_rate"])
-        with wave.open(os.path.join(voices, f"npc{i}.wav"), "wb") as w:
+        buf = io.BytesIO()
+        with wave.open(buf, "wb") as w:
             w.setnchannels(1)
             w.setsampwidth(2)
             w.setframerate(doc["speaker"]["sample_rate"])
             w.writeframes(pcm.tobytes())
+        _put(os.path.join(voices, f"npc{i}.wav"), buf.getvalue())
     return {os.path.realpath(p): k for p, k in files.items()}
 
 
@@ -200,8 +214,15 @@ def _install(w: Watch, files: dict, weights: dict, trace: bool, fault: str) -> N
     orig_stream, orig_generate = server.handle_stream, server.handle_generate
 
     def handle_stream(body):
+        # On the host's monotonic clock (perf_counter), which the load
+        # generator's process reads too.
+        rid = int(body["bench_id"]) if "bench_id" in body else None
+        if rid is not None:
+            w.handed[rid] = None
         chunks = []
         for data, sr in orig_stream(body):
+            if not chunks and rid is not None:
+                w.handed[rid] = time.perf_counter()
             chunks.append(data)
             yield data, sr
         if "bench_id" in body:
@@ -379,6 +400,7 @@ class Control(BaseHTTPRequestHandler):
             with w.lock:
                 w.records.clear()
                 w.sent.clear()
+                w.handed.clear()
                 w.recording = True
             if torch.cuda.is_available():
                 torch.cuda.reset_peak_memory_stats()
@@ -403,6 +425,8 @@ class Control(BaseHTTPRequestHandler):
                 "forbidden_modules": isolation.forbidden_modules(),
                 "phonemes": w.phonemes,
                 "served": served_codes(w, body.get("ids", [])),
+                "handed": {str(k): v for k, v in w.handed.items()},
+                "weight_checksum": self.server.checksum,
                 "trace_error": (trace or {}).get("error"),
             })
         else:
@@ -430,9 +454,15 @@ def main(argv=None) -> None:
     os.chdir(args.work)
     device = torch.device("cpu" if args.platform == "cpu" else "cuda")
     weights = make_weights(doc, args.seed, device)
+    if args.fault == "weights":
+        # A planted fault for the harness's tests: this backend serves one
+        # weight other than the seed's.
+        weights["zonos"]["embeddings.0.weight"][0, 0] += 1.0
+    digest = checksum(weights)
     _install(watch, files, weights, args.trace, args.fault)
     control = ThreadingHTTPServer(("127.0.0.1", args.control_port), Control)
     control.watch = watch
+    control.checksum = digest
     threading.Thread(target=control.serve_forever, daemon=True).start()
     from zonos_tpu_torch.serving import server
 

@@ -3,8 +3,11 @@
 A workload's configuration file is the ``file`` of its ``configs`` entry; its
 traffic mix is ``benchmark/traffic/<traffic>.json``; its cell file (rate,
 server mode, comparison limits) is ``benchmark/cells/<workload>.json``; a
-per-layer metric's reader is ``benchmark/metrics/<metric name>.py``. A later
-change adds a cell, a mix or a metric by adding such files and entries.
+per-layer metric's reader is ``benchmark/metrics/<metric name>.py``; a
+configuration's reference model is ``benchmark/reference/<reference>.py``
+(its file's ``reference`` key, ``model`` where it names none). A later
+change adds a cell, a mix, a metric or a model by adding such files and
+entries.
 """
 
 from __future__ import annotations
@@ -66,10 +69,20 @@ def end_to_end(bench: dict, workload_name: str) -> list[dict]:
     return [m for m in bench["end_to_end"] if "workloads" not in m or workload_name in m["workloads"]]
 
 
-def reader(metric_name: str):
-    """The ``read(ctx)`` function of ``benchmark/metrics/<metric_name>.py``."""
-    path = os.path.join(HERE, "metrics", f"{metric_name}.py")
-    spec = importlib.util.spec_from_file_location(f"benchmark_metric_{metric_name.replace('.', '_')}", path)
+def _module(kind: str, name: str):
+    path = os.path.join(HERE, kind, f"{name}.py")
+    spec = importlib.util.spec_from_file_location(f"benchmark_{kind}_{name.replace('.', '_')}", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.read
+    return mod
+
+
+def reference(doc: dict):
+    """The reference module that a configuration's contents name: its float32
+    model class ``Reference`` and its ``weight_specs(cfg, phoneme_vocab)``."""
+    return _module("reference", doc.get("reference", "model"))
+
+
+def reader(metric_name: str):
+    """The ``read(ctx)`` function of ``benchmark/metrics/<metric_name>.py``."""
+    return _module("metrics", metric_name).read

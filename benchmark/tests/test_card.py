@@ -18,6 +18,11 @@ from benchmark.tests.conftest import REPO
 @pytest.mark.card
 @pytest.mark.parametrize("workload", [w["name"] for w in spec.load()["workloads"]])
 def test_control_fails_the_limits(workload, card, tmp_path):
+    import torch
+
+    chips = spec.workload(spec.load(), workload)["chips"]
+    if torch.cuda.device_count() < chips:
+        pytest.skip(f"needs {chips} CUDA devices")
     env = dict(os.environ, TMPDIR=str(tmp_path))
     out = subprocess.run([sys.executable, "benchmark/run.py", "--workload", workload, "--seed", "2718281828",
                           "--seconds", "12", "--trace", "0", "--control", "1"], cwd=REPO, env=env,

@@ -1,10 +1,11 @@
-"""A cell, a traffic mix and a per-layer metric added as files (and entries)
-are found by name, with no file of the harness edited."""
+"""A cell, a traffic mix, a per-layer metric and a configuration with a
+reference module of its own, added as files (and entries), are found by
+name, with no file of the harness edited."""
 
 import json
 import shutil
 
-from benchmark import spec, traffic
+from benchmark import spec, traffic, weights
 
 
 def test_added_files_are_found(tmp_path, monkeypatch):
@@ -44,3 +45,27 @@ def test_every_named_file_exists():
         json.load(open(spec.config_path(bench, w["config"])))
     for m in bench["per_layer"]:
         assert callable(spec.reader(m["name"]))
+
+
+def test_a_configuration_with_its_own_reference_is_found(tmp_path, monkeypatch):
+    root = tmp_path / "benchmark"
+    shutil.copytree(spec.HERE, root, ignore=shutil.ignore_patterns("__pycache__"))
+    monkeypatch.setattr(spec, "HERE", str(root))
+    (root / "reference" / "own_model.py").write_text(
+        "from benchmark.reference.model import ZonosReference, weight_specs as zonos_specs\n\n\n"
+        "class Reference(ZonosReference):\n    pass\n\n\n"
+        "def weight_specs(cfg, phoneme_vocab):\n"
+        "    return zonos_specs(cfg, phoneme_vocab) + [('extra.weight', (4,), ('const', 2.0))]\n")
+    doc = dict(json.loads((root / "tests" / "tiny-transformer.json").read_text()), reference="own_model",
+               path_key="PATH_MODEL_OWN")
+    (root / "configs" / "own-model.json").write_text(json.dumps(doc))
+    bench = spec.load()
+    bench["configs"].append({"name": "own-model", "source": "https://example.org/own-model",
+                             "file": "benchmark/configs/own-model.json", "reduced": [], "why": "a later model"})
+    with open(spec.config_path(bench, "own-model", root=str(tmp_path))) as f:
+        found = json.load(f)
+    assert found["path_key"] == "PATH_MODEL_OWN"
+    assert spec.reference(found).Reference.__name__ == "Reference"
+    w = weights.make_weights(found, 3, "cpu")["zonos"]
+    assert float(w["extra.weight"].sum()) == 8.0
+    assert spec.reference({}).Reference.__name__ == "ZonosReference"

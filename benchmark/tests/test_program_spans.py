@@ -17,7 +17,7 @@ from benchmark.tests.conftest import REPO
 from benchmark.tests.test_rehearsal import HERE, TINY
 from benchmark.tracedata import Context
 
-ENGINE, SOLO = "tfm-int8.npc-stream.engine", "tfm-int8.npc-generate.solo"
+ENGINE, SOLO, FLEET = "tfm-int8.npc-stream.engine", "tfm-int8.npc-generate.solo", "tfm-int8.npc-stream.fleet4"
 
 
 def ev(name, ts, dur, tid=1, **args):
@@ -131,10 +131,11 @@ def test_readers_find_nothing_without_spans(tmpdir_env):
 
 NEW = {ENGINE: ["front.handler_ms", "prep.ms", "engine.join_wait_ms", "engine.first_audio_ms", "ship.lag_ms",
                 "engine.step_host_ms", "engine.status_wait_ms"],
-       SOLO: ["solo.step_host_ms"]}
+       SOLO: ["solo.step_host_ms"],
+       FLEET: ["router.added_ms", "fleet.busiest_share"]}
 
 
-@pytest.mark.parametrize("workload", [ENGINE, SOLO])
+@pytest.mark.parametrize("workload", [ENGINE, SOLO, FLEET])
 def test_traced_rehearsal_reports_the_program_span_metrics(workload, tmp_path):
     """On the CPU the slice has no device kernel: the metrics that read one
     (``device_idle.in_step.*`` and the other device ones) stay out; each one
@@ -151,6 +152,8 @@ def test_traced_rehearsal_reports_the_program_span_metrics(workload, tmp_path):
     assert line["correct"] and line["failed"] == 0
     for name in NEW[workload]:
         assert line["metrics"][name]["value"] > 0, name
-    (path,) = glob.glob(os.path.join(tmp_path, "zonos-benchmark", "server", "output_temp", "*", "spans.json"))
-    with open(path) as f:
-        assert any(e["name"] == "server.warmup" for e in json.load(f)["traceEvents"])
+    paths = glob.glob(os.path.join(tmp_path, "zonos-benchmark", "server", "output_temp", "*", "spans.json"))
+    assert len(paths) == w["chips"]
+    for path in paths:
+        with open(path) as f:
+            assert any(e["name"] == "server.warmup" for e in json.load(f)["traceEvents"])

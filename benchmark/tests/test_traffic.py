@@ -43,3 +43,11 @@ def test_bodies_carry_the_request():
     assert body["min_p"] == 1.0 and body["randomize_seed"] is False and body["speaker"].startswith("en/npc")
     assert json.loads(json.dumps(body)) == body
     assert os.path.exists(os.path.join(traffic.HERE, "traffic", mix["words"]))
+
+
+def test_the_fleet_mix_is_the_engine_cells_lines():
+    """The fleet cell's mix gives the engine cell's requests: only its rate,
+    set in its cell file, differs."""
+    stream, fleet = spec.traffic("npc-stream"), spec.traffic("npc-stream-fleet")
+    assert {k: v for k, v in fleet.items() if k != "why"} == {k: v for k, v in stream.items() if k != "why"}
+    assert traffic.make_requests(fleet, 2**31 + 5, 51, 6.8) == traffic.make_requests(stream, 2**31 + 5, 51, 6.8)

@@ -5,7 +5,12 @@ kernel's interval (µs on the profiler's clock), the wrapper's host ranges and
 the host times at which the decode steps started, on the same clock, and the
 slice's bounds.
 ``Context`` adds what the cell says (the configuration and the rows a decode
-step runs) and the derived counts every reader shares.
+step runs), the requests' host times (``requests``: of each request whose
+first byte came before the profiler was asked for, its id, the backend that
+served it, the client's first byte and the moment the serving backend's
+wrapper handed its first chunk to the HTTP layer, on the host's monotonic
+clock) and the number of backends, and the derived counts every reader
+shares. A fleet traces its first backend alone.
 """
 
 from __future__ import annotations
@@ -14,8 +19,9 @@ from benchmark import roofline
 
 
 class Context:
-    def __init__(self, trace: dict, cfg: dict, rows: int):
+    def __init__(self, trace: dict, cfg: dict, rows: int, requests: list | None = None, backends: int = 1):
         self.cfg, self.rows = cfg, rows
+        self.requests, self.backends = requests or [], backends
         names = trace["names"]
         self.kernels = [(names[i], s, e) for i, s, e in trace["kernels"]]
         self.t0, self.t1 = trace["slice"]

@@ -3,8 +3,9 @@
 ``make_weights(doc, seed, device)`` returns four state dicts named as the
 published checkpoints name them:
 
-* ``zonos``: the Zonos-v0.1 reference state dict (``embeddings.N``,
-  ``heads.N``, ``backbone.layers.N.*``, ``prefix_conditioner.*``), bf16;
+* ``zonos``: the model's state dict in the layout of its reference module
+  (``spec.reference``; by default Zonos-v0.1's: ``embeddings.N``, ``heads.N``,
+  ``backbone.layers.N.*``, ``prefix_conditioner.*``), bf16;
 * ``dac``: transformers' ``DacModel`` state dict of descript/dac_44khz
   (weight-norm pairs ``weight_g``/``weight_v``), float32;
 * ``speaker``: the ResNet293-SimAM-ASP tower (``front.*``, ``pooling.*``,
@@ -19,93 +20,17 @@ imports the program.
 
 from __future__ import annotations
 
+import hashlib
 import math
 
 import numpy as np
 import torch
 
+from benchmark import spec
+
 # A spec entry: (name, shape, init) with init ("normal", std), ("const", value)
-# or ("fn", callable(generator, shape, device) -> float32 tensor).
-
-
-def _zonos_specs(cfg: dict, phoneme_vocab: int) -> list:
-    bb = cfg["backbone"]
-    d = bb["d_model"]
-    n_q = cfg["codebook_dimension"]
-    hq, hkv = bb["attn_cfg"]["num_heads"], bb["attn_cfg"]["num_heads_kv"]
-    dh = bb["attn_cfg"].get("head_dim") or d // hq
-    head_vocab = cfg["eos_token_id"] + 1
-    specs = []
-    for k in range(n_q):
-        specs.append((f"embeddings.{k}.weight", (cfg["masked_token_id"] + 1, d), ("normal", 1.0)))
-    for k in range(n_q):
-        specs.append((f"heads.{k}.weight", (head_vocab, d), ("normal", 4.0 / math.sqrt(d))))
-
-    def norm(prefix):
-        return [(f"{prefix}.weight", (d,), ("const", 1.0)), (f"{prefix}.bias", (d,), ("const", 0.0))]
-
-    def mlp(base, f):
-        return norm(f"{base}.norm2") + [(f"{base}.mlp.fc1.weight", (2 * f, d), ("normal", 1 / math.sqrt(d))),
-                                        (f"{base}.mlp.fc2.weight", (d, f), ("normal", 1 / math.sqrt(f)))]
-
-    ssm = bb.get("ssm_cfg")
-    attn_idx = set(bb["attn_layer_idx"])
-    for i in range(bb["n_layer"]):
-        base = f"backbone.layers.{i}"
-        m = f"{base}.mixer"
-        specs += norm(f"{base}.norm")
-        if not ssm or i in attn_idx:
-            specs += [(f"{m}.in_proj.weight", ((hq + 2 * hkv) * dh, d), ("normal", 1 / math.sqrt(d))),
-                      (f"{m}.out_proj.weight", (d, hq * dh), ("normal", 1 / math.sqrt(hq * dh)))]
-            specs += mlp(base, bb["attn_mlp_d_intermediate"])
-            continue
-        d_inner = ssm["expand"] * d
-        nheads = d_inner // ssm["headdim"]
-        conv_dim = d_inner + 2 * ssm["ngroups"] * ssm["d_state"]
-        d_in_proj = 2 * d_inner + 2 * ssm["ngroups"] * ssm["d_state"] + nheads
-        specs += [
-            (f"{m}.in_proj.weight", (d_in_proj, d), ("normal", 1 / math.sqrt(d))),
-            (f"{m}.conv1d.weight", (conv_dim, 1, ssm["d_conv"]), ("normal", 0.2)),
-            (f"{m}.conv1d.bias", (conv_dim,), ("const", 0.0)),
-            (f"{m}.dt_bias", (nheads,), ("fn", _dt_bias)),
-            (f"{m}.A_log", (nheads,), ("fn", _a_log)),
-            (f"{m}.D", (nheads,), ("const", 1.0)),
-            (f"{m}.norm.weight", (d_inner,), ("const", 1.0)),
-            (f"{m}.out_proj.weight", (d, d_inner), ("normal", 1 / math.sqrt(d_inner))),
-        ]
-        if bb["d_intermediate"]:
-            specs += mlp(base, bb["d_intermediate"])
-    specs += norm("backbone.norm_f")
-
-    for i, c in enumerate(cfg["prefix_conditioner"]["conditioners"]):
-        base = f"prefix_conditioner.conditioners.{i}"
-        if c["type"] == "EspeakPhonemeConditioner":
-            specs.append((f"{base}.phoneme_embedder.weight", (phoneme_vocab, d), ("normal", 1.0)))
-        elif c["type"] == "FourierConditioner":
-            specs.append((f"{base}.weight", (d // 2, c["input_dim"]), ("normal", c["std"])))
-        elif c["type"] == "IntegerConditioner":
-            specs.append((f"{base}.int_embedder.weight", (int(c["max_val"]) - int(c["min_val"]) + 1, d),
-                          ("normal", 1.0)))
-        if c["projection"] == "linear":
-            cd = c["cond_dim"] or d
-            specs += [(f"{base}.project.weight", (d, cd), ("normal", 1 / math.sqrt(cd))),
-                      (f"{base}.project.bias", (d,), ("const", 0.0))]
-        if c["uncond_type"] == "learned":
-            specs.append((f"{base}.uncond_vector", (d,), ("normal", 1.0)))
-    specs += [("prefix_conditioner.norm.weight", (d,), ("const", 1.0)),
-              ("prefix_conditioner.norm.bias", (d,), ("const", 0.0))]
-    return specs
-
-
-def _dt_bias(gen, shape, device):
-    """Mamba2's dt init: log-uniform in [0.001, 0.1], stored as its inverse softplus."""
-    u = torch.rand(shape, generator=gen, dtype=torch.float32, device=device)
-    dt = torch.exp(u * (math.log(0.1) - math.log(0.001)) + math.log(0.001))
-    return dt + torch.log(-torch.expm1(-dt))
-
-
-def _a_log(gen, shape, device):
-    return torch.log(torch.linspace(1.0, 16.0, shape[0], dtype=torch.float32, device=device))
+# or ("fn", callable(generator, shape, device) -> float32 tensor). The model's
+# specs are its reference module's ``weight_specs`` (``spec.reference``).
 
 
 def _conv(specs, prefix, shape, std, bias=True):
@@ -242,12 +167,27 @@ def make_weights(doc: dict, seed: int, device) -> dict:
     gen = torch.Generator(device=device)
     gen.manual_seed(int(seed) % (2**63))
     cfg = doc["config"]
-    (zonos,) = _materialize([_zonos_specs(cfg, doc["phoneme_vocab_size"])], gen, device, torch.bfloat16)
+    (zonos,) = _materialize([spec.reference(doc).weight_specs(cfg, doc["phoneme_vocab_size"])], gen, device,
+                            torch.bfloat16)
     # A line runs to its budget: EOS is never codebook 0's best token.
     zonos["heads.0.weight"][cfg["eos_token_id"]].zero_()
     dac, speaker, lda = _materialize([_dac_specs(doc["dac"]), _speaker_specs(doc["speaker"]),
                                       _lda_specs(doc["speaker"])], gen, device, torch.float32)
     return {"zonos": zonos, "dac": dac, "speaker": speaker, "lda": lda}
+
+
+@torch.no_grad()
+def checksum(weights: dict) -> str:
+    """A digest of every tensor's bits in ``make_weights``'s result, made on the
+    device: a server has to serve the weights that the reference makes again."""
+    ints = {1: torch.uint8, 2: torch.int16, 4: torch.int32}
+    sums = []
+    for group in sorted(weights):
+        for name in sorted(weights[group]):
+            t = weights[group][name]
+            v = t.contiguous().view(ints[t.element_size()]).to(torch.int64)
+            sums.append(torch.stack([v.sum(), (v * v).sum()]))
+    return hashlib.sha256(torch.stack(sums).cpu().numpy().tobytes()).hexdigest()
 
 
 def make_voice(seed: int, index: int, seconds: float = 10.0, sr: int = 16000) -> np.ndarray:
