@@ -23,7 +23,9 @@ Phases; any failure exits non-zero:
      8- and 16-slot engines' 16 and 32 rows: one launch) and at 40 (two
      launches of 32 and 8 rows), and K2 over the engine's cache (16 rows of
      3328 slots, a dead span of its own length per row, read through a
-     1024-slot attend view); then K1 and
+     1024-slot attend view) and at head dim 64 (granite-4.0-h-micro's 8 KV
+     and 32 query heads, score scale 1/64: the engine's 32 rows through that
+     view, and a cache walked in two bulk-copy stages); then K1 and
      K3 called from two host threads at once, 200 calls each at B 2, 16 and 32,
      one thread on a stream of its own: every output bit-equal to the same
      call made alone, launch counts exact;
@@ -375,7 +377,6 @@ def _k2_cases(gen, flush, read_flush):
     from zonos_tpu_torch.models.transformer import _kv_quantize
     from zonos_tpu_torch.ops import cuda_attention as A
 
-    dh = 128
     rows = []
     # the main path's cache (1152 slots, timed), a cache long enough that each
     # rank walks its share in two bulk-copy stages (checked only), and the
@@ -384,13 +385,21 @@ def _k2_cases(gen, flush, read_flush):
     # 1024-slot view of an attend rung (timed)
     engine_gap = [int(v) for v in np.random.default_rng(7).integers(0, 700, 16)]
     # (and a tp = 2 rank's 2 KV heads and 8 query heads, and a tp = 4 rank's
-    # 1 KV head and 4 query heads, over the main path's cache)
-    for case, b, s, view, wi, gap_start, gap, hkv, hq in (
-            ("mid-cache", 2, 1152, None, 700, 0, None, 4, 16), ("gap", 2, 1152, None, 900, 128, [40, 0], 4, 16),
-            ("long-cache", 2, 8192, None, 8000, 0, None, 4, 16),
-            ("engine B=16 S=3328 attend 1024", 16, 3328, 1024, 1000, 256, engine_gap, 4, 16),
-            ("tp2 Hkv 2 Hq 8", 2, 1152, None, 700, 0, None, 2, 8),
-            ("tp4 Hkv 1 Hq 4", 2, 1152, None, 700, 0, None, 1, 4)):
+    # 1 KV head and 4 query heads, over the main path's cache); then head dim
+    # 64 at granite-4.0-h-micro's 8 KV and 32 query heads and its score scale
+    # 1/64: the engine's 32 rows through the same view (timed) and the long
+    # cache's two stages (checked only)
+    granite_gap = [int(v) for v in np.random.default_rng(9).integers(0, 700, 32)]
+    for case, b, s, view, wi, gap_start, gap, hkv, hq, dh, scale in (
+            ("mid-cache", 2, 1152, None, 700, 0, None, 4, 16, 128, None),
+            ("gap", 2, 1152, None, 900, 128, [40, 0], 4, 16, 128, None),
+            ("long-cache", 2, 8192, None, 8000, 0, None, 4, 16, 128, None),
+            ("engine B=16 S=3328 attend 1024", 16, 3328, 1024, 1000, 256, engine_gap, 4, 16, 128, None),
+            ("tp2 Hkv 2 Hq 8", 2, 1152, None, 700, 0, None, 2, 8, 128, None),
+            ("tp4 Hkv 1 Hq 4", 2, 1152, None, 700, 0, None, 1, 4, 128, None),
+            ("granite Dh 64 engine B=32 S=3328 attend 1024", 32, 3328, 1024, 1000, 256, granite_gap, 8, 32, 64,
+             1 / 64),
+            ("granite Dh 64 long-cache", 2, 8192, None, 8000, 0, None, 8, 32, 64, 1 / 64)):
         q = torch.randn((b, 1, hq, dh), generator=gen, device="cuda").to(torch.bfloat16)
         kq, ks = _kv_quantize(torch.randn((b, s, hkv, dh), generator=gen, device="cuda") * 2.0)
         vq, vs = _kv_quantize(torch.randn((b, s, hkv, dh), generator=gen, device="cuda"))
@@ -403,7 +412,7 @@ def _k2_cases(gen, flush, read_flush):
         pad = torch.tensor(pad_host, dtype=torch.int32, device="cuda")
         wi_t = torch.tensor([wi], dtype=torch.int32, device="cuda")
         gap_len = None if gap is None else torch.tensor(gap, dtype=torch.int32, device="cuda")
-        args = (q, kq, ks, vq, vs, wi_t, pad, gap_start, gap_len)
+        args = (q, kq, ks, vq, vs, wi_t, pad, gap_start, gap_len, scale)
         out = A.attn_core_int8(*args)
         ref = A.attn_core_int8_plain(*args)
         torch.cuda.synchronize()
@@ -425,7 +434,7 @@ def _k2_cases(gen, flush, read_flush):
         kd = (kq.float() * ks[..., None]).to(torch.bfloat16)
         vd = (vq.float() * vs[..., None]).to(torch.bfloat16)
         qt = q.transpose(1, 2)
-        lib = lambda: F.scaled_dot_product_attention(qt, kd, vd, attn_mask=mask, enable_gqa=True)  # noqa: E731
+        lib = lambda: F.scaled_dot_product_attention(qt, kd, vd, attn_mask=mask, enable_gqa=True, scale=scale)  # noqa: E731
         n_valid = [
             sum(1 for j in range(s) if pad_host[i] <= j <= wi and not (gap is not None and gap_start <= j < gap_start + gap[i]))
             for i in range(b)
@@ -433,10 +442,10 @@ def _k2_cases(gen, flush, read_flush):
         nbytes = sum(hkv * n * (2 * dh + 2 * 4) for n in n_valid) + 2 * b * hq * dh * 2
         ops = sum(hq * n * dh * 4 for n in n_valid)
         kernel = lambda: A.attn_core_int8(*args)  # noqa: E731
-        plan = A.attn_plan(s, hq // hkv)
+        plan = A.attn_plan(s, hq // hkv, dh)
         row = {"case": case, "max_abs_err": err, "corr": corr, "cluster": plan.cluster,
                "stages": -(-plan.share_cap // plan.stage)}
-        if case != "long-cache":
+        if "long-cache" not in case:
             row.update({
                 "ms": _time_ms(kernel, flush),
                 "plain_ms": _time_ms(lambda: A.attn_core_int8_plain(*args), flush),

@@ -40,9 +40,12 @@ def _split(cls, d: Mapping[str, Any]) -> tuple[dict, tuple]:
 
 def config_to_dict(obj: Any) -> Any:
     """A config dataclass → nested dicts and lists (tuples become lists), the
-    form JSON holds and ``from_dict`` reads back."""
+    form JSON holds and ``from_dict`` reads back. A field marked
+    ``omit_default`` is left out while it holds its default, so a config
+    that does not use it writes the dict it wrote before the field existed."""
     if dataclasses.is_dataclass(obj):
-        return {f.name: config_to_dict(getattr(obj, f.name)) for f in dataclasses.fields(obj)}
+        return {f.name: config_to_dict(getattr(obj, f.name)) for f in dataclasses.fields(obj)
+                if not (f.metadata.get("omit_default") and getattr(obj, f.name) == f.default)}
     if isinstance(obj, (list, tuple)):
         return [config_to_dict(v) for v in obj]
     return obj
@@ -96,9 +99,25 @@ class SSMConfig:
         return cls(extra=extra, **known)
 
 
+def _setting(default: float | bool | None = 1.0):
+    """A setting that only some checkpoints carry (``omit_default``)."""
+    return dataclasses.field(default=default, metadata={"omit_default": True})
+
+
 @dataclasses.dataclass(frozen=True)
 class BackboneConfig:
-    """Backbone architecture config."""
+    """Backbone architecture config.
+
+    The four scalars carry Granite 4.0's published names and meanings, and
+    the hybrid backbone applies them (at 1.0 each does nothing):
+    ``embedding_multiplier`` scales the backbone's whole input,
+    ``residual_multiplier`` every mixer and MLP branch before it joins the
+    residual stream, ``attention_multiplier`` replaces the softmax scale
+    1/sqrt(head_dim) where it is not None, and the final hidden state is
+    divided by ``logits_scaling`` before the (linear, bias-free) heads.
+    ``rms_norm_f`` makes the final norm an RMSNorm, as Granite's is; Zonos's
+    is a LayerNorm even where ``rms_norm`` makes every block's norm an RMSNorm.
+    """
 
     d_model: int = 1024
     d_intermediate: int = 0
@@ -110,6 +129,11 @@ class BackboneConfig:
     rms_norm: bool = False
     residual_in_fp32: bool = False
     norm_epsilon: float = 1e-5
+    embedding_multiplier: float = _setting()
+    residual_multiplier: float = _setting()
+    attention_multiplier: float | None = _setting(None)
+    logits_scaling: float = _setting()
+    rms_norm_f: bool = _setting(False)
 
     @property
     def is_hybrid(self) -> bool:

@@ -6,8 +6,11 @@
 //     scores_s = (q . k_int8[s]) * ks[s] * (1/sqrt(Dh))        (f32)
 //     valid s:   pad[b] <= s <= write_index, outside [gap_start, gap_start + gap_len[b])
 //     p = softmax over valid s (f32);  out = sum_s bf16(p_s * vs[s]) * v_int8[s]
-// q bf16 [B, Hq, 128]; kq / vq int8 [B, Hkv, S, 128] (row stride 128, batch
-// and head strides given); ks / vs f32 [B, Hkv, S]; out bf16 [B, Hq, 128].
+// q bf16 [B, Hq, DH]; kq / vq int8 [B, Hkv, S, DH] (row stride DH, batch
+// and head strides given); ks / vs f32 [B, Hkv, S]; out bf16 [B, Hq, DH].
+// DH is 128 (Zonos-v0.1) or 64 (granite-4.0-h-micro's heads; G <= 4 there),
+// a template parameter; the score scale is the caller's (1/sqrt(Dh) by
+// default, a config's attention_multiplier otherwise).
 // A (b, h) with no valid slot gives 0.
 //
 // Bound on an H100: device-memory bytes (the int8 K and V rows up to
@@ -22,8 +25,8 @@
 //     as two 1-D TMA bulk copies (cp.async.bulk) against two mbarriers, and
 //     the threads load the scales meanwhile; a share longer than the
 //     shared-memory stage is walked in stages (K for the scores, then V);
-//   * 8 lanes per slot read one 128-byte K row from shared memory (16 bytes
-//     each), the G dot products reduce over 3 shuffles;
+//   * DH / 16 lanes per slot read one DH-byte K row from shared memory (16
+//     bytes each), the G dot products reduce over log2(DH / 16) shuffles;
 //   * rank-local (max, sum) per query head by warp shuffles, pushed to every
 //     rank by distributed shared memory stores; after a cluster barrier each
 //     rank knows the global (M, L) and rounds p = exp(s - M) / L * vs to bf16
@@ -45,7 +48,6 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int DH = 128;
 constexpr int MAXG = 8;
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
@@ -83,7 +85,8 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity)
     }
 }
 
-// rows x 128 bytes from global to shared, one bulk copy completing on bar.
+// rows x DH bytes from global to shared, one bulk copy completing on bar.
+template <int DH>
 __device__ __forceinline__ void load_rows(int8_t* dst, const int8_t* src, int rows, uint32_t bar)
 {
     const uint32_t bytes = static_cast<uint32_t>(rows) * DH;
@@ -102,7 +105,8 @@ __device__ __forceinline__ void unpack4(uint32_t w, float* f)
         f[j] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440u | j)) - 8388736.f;
 }
 
-template <int GM>  // GM >= G: query heads held in registers
+// DH: head dim; GM >= G: query heads held in registers.
+template <int DH, int GM>
 __global__ void __launch_bounds__(THREADS)
 attn_cluster(const __nv_bfloat16* __restrict__ q, const int8_t* __restrict__ kq,
              const float* __restrict__ ks, const int8_t* __restrict__ vq,
@@ -112,6 +116,10 @@ attn_cluster(const __nv_bfloat16* __restrict__ q, const int8_t* __restrict__ kq,
              __nv_bfloat16* __restrict__ out, int Hkv, int G, int S, int share_cap, int stage,
              float sm_scale)
 {
+    constexpr int LPS = DH / 16;        // lanes per slot, 16 dims each
+    constexpr int SPW = 32 / LPS;       // slots per warp
+    constexpr int PARTS = THREADS / DH;  // PV threads per output dim, each every PARTS-th slot
+    static_assert(DH % 16 == 0 && 32 % LPS == 0 && THREADS % DH == 0 && GM <= LPS, "unsupported DH / GM");
     extern __shared__ __align__(128) unsigned char smem[];
     // Remote ranks write into ml and recv: arrive now, wait before the first such write.
     asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
@@ -147,8 +155,8 @@ attn_cluster(const __nv_bfloat16* __restrict__ q, const int8_t* __restrict__ kq,
         mbar_init(vbar);
         asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
         if (n > 0) {  // the first K and V stage at once; a rank past write_index loads nothing
-            load_rows(kbuf, kbase, min(n, stage), kbar);
-            load_rows(vbuf, vbase, min(n, stage), vbar);
+            load_rows<DH>(kbuf, kbase, min(n, stage), kbar);
+            load_rows<DH>(vbuf, vbase, min(n, stage), vbar);
         }
     }
     const float* ksb = ks + b * sc_sb + h * sc_sh + s0;
@@ -158,8 +166,8 @@ attn_cluster(const __nv_bfloat16* __restrict__ q, const int8_t* __restrict__ kq,
         vsh[j] = vsb[j];
     }
 
-    // Lane group sub (8 lanes) takes one slot; lane c holds dims [16c, 16c + 16).
-    const int sub = lane >> 3, c = lane & 7;
+    // Lane group sub (LPS lanes) takes one slot; lane c holds dims [16c, 16c + 16).
+    const int sub = lane / LPS, c = lane % LPS;
     float qr[GM][16];
 #pragma unroll
     for (int g = 0; g < GM; ++g) {
@@ -189,11 +197,11 @@ attn_cluster(const __nv_bfloat16* __restrict__ q, const int8_t* __restrict__ kq,
         const int j0 = st * stage, rows = min(stage, n - j0);
         if (st > 0) {
             __syncthreads();  // every thread is done with the previous K stage
-            if (tid == 0) load_rows(kbuf, kbase + (size_t)j0 * DH, rows, kbar);
+            if (tid == 0) load_rows<DH>(kbuf, kbase + (size_t)j0 * DH, rows, kbar);
         }
         mbar_wait(kbar, kphase);
         kphase ^= 1;
-        for (int jb = warp * 4; jb < rows; jb += WARPS * 4) {  // uniform per warp: shuffles stay full
+        for (int jb = warp * SPW; jb < rows; jb += WARPS * SPW) {  // uniform per warp: shuffles stay full
             const int jj = jb + sub;
             const bool in = jj < rows;
             const uint4 kv = in ? *reinterpret_cast<const uint4*>(kbuf + (size_t)jj * DH + 16 * c)
@@ -209,9 +217,8 @@ attn_cluster(const __nv_bfloat16* __restrict__ q, const int8_t* __restrict__ kq,
                 float d = 0.f;
 #pragma unroll
                 for (int i = 0; i < 16; ++i) d = fmaf(qr[g][i], kf[i], d);
-                d += __shfl_xor_sync(0xffffffffu, d, 4);
-                d += __shfl_xor_sync(0xffffffffu, d, 2);
-                d += __shfl_xor_sync(0xffffffffu, d, 1);
+#pragma unroll
+                for (int off = LPS / 2; off > 0; off >>= 1) d += __shfl_xor_sync(0xffffffffu, d, off);
                 if (g == c) mine = d;
             }
             if (in && c < G) {
@@ -300,36 +307,40 @@ attn_cluster(const __nv_bfloat16* __restrict__ q, const int8_t* __restrict__ kq,
         sc[g * share_cap + j] = __bfloat162float(__float2bfloat16(p * vsh[j]));
     }
 
-    // PV sum, stage by stage over V: thread (d, half) takes every other slot.
-    const int d = tid & (DH - 1), half = tid >> 7;
+    // PV sum, stage by stage over V: thread (d, part) takes every PARTS-th slot.
+    const int d = tid % DH, part = tid / DH;
     float acc[GM];
 #pragma unroll
     for (int g = 0; g < GM; ++g) acc[g] = 0.f;
     for (int st = 0; st < nst; ++st) {
         const int j0 = st * stage, rows = min(stage, n - j0);
         __syncthreads();  // the weights are written; the previous V stage is read
-        if (st > 0 && tid == 0) load_rows(vbuf, vbase + (size_t)j0 * DH, rows, vbar);
+        if (st > 0 && tid == 0) load_rows<DH>(vbuf, vbase + (size_t)j0 * DH, rows, vbar);
         mbar_wait(vbar, vphase);
         vphase ^= 1;
 #pragma unroll 4
-        for (int jj = half; jj < rows; jj += 2) {
+        for (int jj = part; jj < rows; jj += PARTS) {
             const float v = (float)vbuf[(size_t)jj * DH + d];
 #pragma unroll
             for (int g = 0; g < GM; ++g)
                 if (g < G) acc[g] = fmaf(sc[g * share_cap + j0 + jj], v, acc[g]);
         }
     }
+    // The parts' sums added in a fixed order, the last part first.
     __syncthreads();
-    if (half == 1)
+    if (part == PARTS - 1)
 #pragma unroll
         for (int g = 0; g < GM; ++g)
             if (g < G) opart[g * DH + d] = acc[g];
     __syncthreads();
-    if (half == 0)
 #pragma unroll
-        for (int g = 0; g < GM; ++g)
-            if (g < G) opart[g * DH + d] = acc[g] + opart[g * DH + d];
-    __syncthreads();
+    for (int p = PARTS - 2; p >= 0; --p) {
+        if (part == p)
+#pragma unroll
+            for (int g = 0; g < GM; ++g)
+                if (g < G) opart[g * DH + d] = acc[g] + opart[g * DH + d];
+        __syncthreads();
+    }
 
     // Rank r owns outputs [r * slice, (r + 1) * slice) of the G x DH: every rank
     // pushes its partials there, and the owner adds them in rank order.
@@ -347,7 +358,7 @@ attn_cluster(const __nv_bfloat16* __restrict__ q, const int8_t* __restrict__ kq,
     }
 }
 
-template <int GM>
+template <int DH, int GM>
 int launch(const void* q, const void* kq, const void* ks, const void* vq, const void* vs,
            long long kv_sb, long long kv_sh, long long sc_sb, long long sc_sh,
            const void* write_index, const void* pad, const void* gap_len, int gap_start, void* out,
@@ -358,9 +369,9 @@ int launch(const void* q, const void* kq, const void* ks, const void* vq, const 
     static bool configured = false;  // attributes are per kernel, set once
     const std::lock_guard<std::mutex> lock(mutex);
     if (!configured) {
-        cudaError_t e = cudaFuncSetAttribute(attn_cluster<GM>, cudaFuncAttributeMaxDynamicSharedMemorySize, 232448);
+        cudaError_t e = cudaFuncSetAttribute(attn_cluster<DH, GM>, cudaFuncAttributeMaxDynamicSharedMemorySize, 232448);
         if (e == cudaSuccess)
-            e = cudaFuncSetAttribute(attn_cluster<GM>, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+            e = cudaFuncSetAttribute(attn_cluster<DH, GM>, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
         if (e != cudaSuccess) return (int)e;
         configured = true;
     }
@@ -377,7 +388,7 @@ int launch(const void* q, const void* kq, const void* ks, const void* vq, const 
     cfg.attrs = attr;
     cfg.numAttrs = 1;
     const cudaError_t e = cudaLaunchKernelEx(
-        &cfg, attn_cluster<GM>, static_cast<const __nv_bfloat16*>(q), static_cast<const int8_t*>(kq),
+        &cfg, attn_cluster<DH, GM>, static_cast<const __nv_bfloat16*>(q), static_cast<const int8_t*>(kq),
         static_cast<const float*>(ks), static_cast<const int8_t*>(vq), static_cast<const float*>(vs),
         kv_sb, kv_sh, sc_sb, sc_sh, static_cast<const int*>(write_index), static_cast<const int*>(pad),
         static_cast<const int*>(gap_len), gap_start, static_cast<__nv_bfloat16*>(out), Hkv, G, S, share_cap,
@@ -389,21 +400,24 @@ int launch(const void* q, const void* kq, const void* ks, const void* vq, const 
 }  // namespace
 
 // share_cap >= ceil(S / cluster) slots, stage <= share_cap slots per bulk copy,
-// smem_bytes as ops/cuda_attention.attn_plan lays it out.
+// smem_bytes as ops/cuda_attention.attn_plan lays it out; dh 128, or 64 with G <= 4.
 extern "C" int zt_attn_core_int8(const void* q, const void* kq, const void* ks, const void* vq,
                                  const void* vs, long long kv_sb, long long kv_sh,
                                  long long sc_sb, long long sc_sh, const void* write_index,
                                  const void* pad, const void* gap_len, int gap_start, void* out,
                                  int B, int Hkv, int G, int S, int cluster, int share_cap, int stage,
-                                 int smem_bytes, float sm_scale, void* stream)
+                                 int smem_bytes, int dh, float sm_scale, void* stream)
 {
     if (G < 1 || G > MAXG || cluster < 1 || cluster > MAX_CLUSTER || stage < 1 ||
-        (long long)share_cap * cluster < S || stage > share_cap)
+        (long long)share_cap * cluster < S || stage > share_cap || !(dh == 128 || (dh == 64 && G <= 4)))
         return (int)cudaErrorInvalidValue;
     cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+    if (dh == 64)
+        return launch<64, 4>(q, kq, ks, vq, vs, kv_sb, kv_sh, sc_sb, sc_sh, write_index, pad, gap_len, gap_start,
+                             out, B, Hkv, G, S, cluster, share_cap, stage, smem_bytes, sm_scale, st);
     if (G <= 4)
-        return launch<4>(q, kq, ks, vq, vs, kv_sb, kv_sh, sc_sb, sc_sh, write_index, pad, gap_len, gap_start,
+        return launch<128, 4>(q, kq, ks, vq, vs, kv_sb, kv_sh, sc_sb, sc_sh, write_index, pad, gap_len, gap_start,
                          out, B, Hkv, G, S, cluster, share_cap, stage, smem_bytes, sm_scale, st);
-    return launch<8>(q, kq, ks, vq, vs, kv_sb, kv_sh, sc_sb, sc_sh, write_index, pad, gap_len, gap_start,
+    return launch<128, 8>(q, kq, ks, vq, vs, kv_sb, kv_sh, sc_sb, sc_sh, write_index, pad, gap_len, gap_start,
                      out, B, Hkv, G, S, cluster, share_cap, stage, smem_bytes, sm_scale, st);
 }

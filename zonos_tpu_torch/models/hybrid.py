@@ -2,12 +2,15 @@
 
 Pre-norm residual blocks whose mixer is a Mamba2 SSD (most layers) or GQA
 attention (the layers of ``attn_layer_idx``), each followed by a gated-SiLU
-MLP where the config gives one, and a final LayerNorm. Params keep the JAX
-layout: ``params["groups"]`` holds, in layer order, one dict per attention
-layer and one layer-stacked dict per run of consecutive Mamba layers (every
-leaf with a leading run axis R; ``layer_groups``). A Python loop over a run's
-layers takes the place of JAX's ``lax.scan`` and writes each layer's conv and
-SSD states into the cache in place.
+MLP where the config gives one, and a final LayerNorm (an RMSNorm with
+``rms_norm_f``). The config's Granite scalars (``BackboneConfig``) scale
+the input, each branch, the attention's scores and the final hidden state;
+at their defaults they do nothing. Params keep the JAX layout:
+``params["groups"]`` holds, in layer order, one dict per attention layer and
+one layer-stacked dict per run of consecutive Mamba layers (every leaf with
+a leading run axis R; ``layer_groups``). A Python loop over a run's layers
+takes the place of JAX's ``lax.scan`` and writes each layer's conv and SSD
+states into the cache in place.
 
 The decode step (S = 1) runs through the CUDA kernels where they apply, as
 the transformer's does: int8 projections (Mamba and attention in_proj and
@@ -135,6 +138,11 @@ def _norm(x: torch.Tensor, p: dict, cfg: BackboneConfig) -> torch.Tensor:
     return layer_norm(x, p["scale"], p.get("bias"), cfg.norm_epsilon)
 
 
+def _residual(x: torch.Tensor, branch: torch.Tensor, cfg: BackboneConfig) -> torch.Tensor:
+    """x + residual_multiplier · branch, rounded once."""
+    return torch.add(x, branch, alpha=cfg.residual_multiplier)
+
+
 def _attn_mixer(p: dict, cfg: BackboneConfig, x: torch.Tensor, cache: HybridCache | None, gi: int,
                 write_start, mask, attend_len: int, pos_offset=None, decode_args=None,
                 mesh=None) -> torch.Tensor:
@@ -155,8 +163,9 @@ def _attn_mixer(p: dict, cfg: BackboneConfig, x: torch.Tensor, cache: HybridCach
         q = torch.cat([apply_rope_neox(q[..., :rdim], freqs), q[..., rdim:]], dim=-1)
         k = torch.cat([apply_rope_neox(k[..., :rdim], freqs), k[..., rdim:]], dim=-1)
 
+    scale = cfg.attention_multiplier
     if cache is None:
-        att = gqa_attention(q, k, v, mask)
+        att = gqa_attention(q, k, v, mask, scale)
     elif cache.kv_ks[gi] is not None:
         kc, vc, ks, vs = cache.kv_k[gi], cache.kv_v[gi], cache.kv_ks[gi], cache.kv_vs[gi]
         kq, knew = _kv_quantize(k)
@@ -169,13 +178,13 @@ def _attn_mixer(p: dict, cfg: BackboneConfig, x: torch.Tensor, cache: HybridCach
         if decode_args is not None:
             write_index, pad_amount, gap_start, gap_len = decode_args
             att = attn_core_int8(q.contiguous(), *window, write_index, pad_amount, gap_start=gap_start,
-                                 gap_len=gap_len)
+                                 gap_len=gap_len, sm_scale=scale)
         else:
-            att = gqa_attention_quantized(q, *window, mask)
+            att = gqa_attention_quantized(q, *window, mask, scale=scale)
     else:
         _write_slots(cache.kv_k[gi], 1, write_start, k)
         _write_slots(cache.kv_v[gi], 1, write_start, v)
-        att = gqa_attention(q, cache.kv_k[gi][:, :attend_len], cache.kv_v[gi][:, :attend_len], mask)
+        att = gqa_attention(q, cache.kv_k[gi][:, :attend_len], cache.kv_v[gi][:, :attend_len], mask, scale)
     out = row_parallel("bse,ed->bsd", att.reshape(b, s, hq * dh), p["out_proj"], mesh)
     if p.get("out_proj_b") is not None:
         out = out + p["out_proj_b"].to(out.dtype)
@@ -190,9 +199,9 @@ def _mamba_layer(layer_p: dict, cfg: BackboneConfig, x: torch.Tensor, conv_state
     else:
         out, conv_state, ssm_state = mamba2_step(layer_p["mixer"], h, cfg.ssm_cfg, conv_state, ssm_state,
                                                  mesh=mesh)
-    x = x + out
+    x = _residual(x, out, cfg)
     if layer_p.get("mlp") is not None:
-        x = x + mlp(_norm(x, layer_p["norm2"], cfg), layer_p["mlp"], mesh)
+        x = _residual(x, mlp(_norm(x, layer_p["norm2"], cfg), layer_p["mlp"], mesh), cfg)
     return x, conv_state, ssm_state
 
 
@@ -211,6 +220,8 @@ def hybrid_forward(
     mesh=None,  # parallel.mesh.Mesh for tensor parallelism (cfg: local_config's)
 ) -> tuple[torch.Tensor, HybridCache | None]:
     """All hybrid layers over x; S > 1 is the prefill, S == 1 a decode step.
+    ``x`` is the whole backbone input (the conditioning prefix and the code
+    embeddings), which ``embedding_multiplier`` scales.
 
     The cache (KV, conv and SSD states) is updated in place. With cache None
     the prefill runs cache-free: attention over x itself, Mamba states from
@@ -239,14 +250,16 @@ def hybrid_forward(
         out = _attn_mixer(gp["mixer"], cfg, _norm(x, gp["norm"], cfg), cache, gi, write_start, mask,
                           attend_len if cache is not None else s, None if prefill else pos_offset, decode_args,
                           mesh)
-        x = x + out
+        x = _residual(x, out, cfg)
         if gp.get("mlp") is not None:
-            x = x + mlp(_norm(x, gp["norm2"], cfg), gp["mlp"], mesh)
+            x = _residual(x, mlp(_norm(x, gp["norm2"], cfg), gp["mlp"], mesh), cfg)
         return x
 
     def mamba_layer_no_cache(layer_p, x):
         return _mamba_layer(layer_p, cfg, x, None, None, seq_mask, prefill, mesh)[0]
 
+    if cfg.embedding_multiplier != 1.0:
+        x = x * cfg.embedding_multiplier
     ckpt = remat and cache is None
     for gi, (kind, run) in enumerate(layer_groups(cfg)):
         gp = params["groups"][gi]
@@ -264,7 +277,11 @@ def hybrid_forward(
                                                     seq_mask, prefill, mesh)
             cache.conv[gi][i].copy_(conv_state)
             cache.ssm[gi][i].copy_(ssm_state)
-    x = layer_norm(x, params["norm_f"]["scale"], params["norm_f"]["bias"], cfg.norm_epsilon)
+    nf = params["norm_f"]
+    x = (rms_norm(x, nf["scale"], cfg.norm_epsilon) if cfg.rms_norm_f
+         else layer_norm(x, nf["scale"], nf.get("bias"), cfg.norm_epsilon))
+    if cfg.logits_scaling != 1.0:  # the heads are linear and bias-free: logits / logits_scaling
+        x = x / cfg.logits_scaling
     return x, cache
 
 
@@ -331,4 +348,7 @@ def init_hybrid_params(generator: torch.Generator, cfg: BackboneConfig, dtype=to
                           "norm2": None, "mlp": None}, cfg.d_intermediate)
                 for _ in range(run)
             ]))
-    return {"groups": groups, "norm_f": {"scale": torch.ones((d,), dtype=dtype, device=device), "bias": zeros(d)}}
+    norm_f = {"scale": torch.ones((d,), dtype=dtype, device=device)}
+    if not cfg.rms_norm_f:
+        norm_f["bias"] = zeros(d)
+    return {"groups": groups, "norm_f": norm_f}

@@ -1,7 +1,9 @@
 """GQA attention and its masks (port of ``zonos_tpu/ops/attention.py``).
 
 GQA views queries as [B, Sq, Hkv, G, Dh] against unreplicated K/V. Softmax is
-f32 whatever the input dtype; masked scores are set to -1e30 as in JAX.
+f32 whatever the input dtype; masked scores are set to -1e30 as in JAX. The
+score scale is ``scale`` where a caller gives one (a config's
+``attention_multiplier``), else 1/sqrt(Dh).
 """
 
 from __future__ import annotations
@@ -23,13 +25,14 @@ def gqa_attention(
     k: torch.Tensor,  # [B, Sk, Hkv, Dh]
     v: torch.Tensor,  # [B, Sk, Hkv, Dh]
     mask: torch.Tensor | None,  # [B, Sq, Sk] bool, True = attend
+    scale: float | None = None,
 ) -> torch.Tensor:
     """Grouped-query attention → [B, Sq, Hq, Dh] in q.dtype."""
     b, sq, hq, dh = q.shape
     hkv = k.shape[2]
     g = hq // hkv
     qg = q.reshape(b, sq, hkv, g, dh)
-    scores = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float()) * sm_scale_f32(dh)
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float()) * (scale or sm_scale_f32(dh))
     if mask is not None:
         scores = torch.where(mask[:, None, None], scores, torch.full_like(scores, NEG_INF))
     probs = torch.softmax(scores, dim=-1)
@@ -45,6 +48,7 @@ def gqa_attention_quantized(
     vs: torch.Tensor,  # [B, Hkv, Sk] f32
     mask: torch.Tensor | None,
     use_qq: bool | None = None,
+    scale: float | None = None,
 ) -> torch.Tensor:
     """GQA directly on the int8 KV cache: K's scale multiplies the scores after
     the q·k contraction, V's scale folds into the weights before the PV sum.
@@ -57,7 +61,7 @@ def gqa_attention_quantized(
     b, sq, hq, dh = q.shape
     hkv = kq.shape[1]
     g = hq // hkv
-    scale = sm_scale_f32(dh)
+    scale = scale or sm_scale_f32(dh)
     qg = q.reshape(b, sq, hkv, g, dh)
     if use_qq is None:
         use_qq = b >= 16

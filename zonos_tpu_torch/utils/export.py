@@ -58,7 +58,8 @@ def params_to_torch_state_dict(params: Mapping[str, Any], cfg: ZonosConfig,
             for name, v in stacked.items():
                 sd[f"backbone.layers.{i}.{name}"] = v[i].contiguous()
     sd["backbone.norm_f.weight"] = f(bb["norm_f"]["scale"])
-    sd["backbone.norm_f.bias"] = f(bb["norm_f"]["bias"])
+    if bb["norm_f"].get("bias") is not None:
+        sd["backbone.norm_f.bias"] = f(bb["norm_f"]["bias"])
     _export_conditioner(sd, params["prefix_conditioner"], cfg, f, t)
     return sd
 

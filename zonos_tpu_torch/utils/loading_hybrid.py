@@ -11,7 +11,7 @@ mamba-ssm's ``create_block`` naming, per layer i:
     backbone.layers.{i}.mixer.out_proj.weight
     backbone.layers.{i}.norm2.{weight,bias}            # where there is an MLP
     backbone.layers.{i}.mlp.{fc1,fc2}.weight
-    backbone.norm_f.{weight,bias}
+    backbone.norm_f.{weight,bias}                      # no bias under rms_norm_f
 
 Each run of consecutive Mamba layers is stacked (``models.hybrid.stack_layers``).
 """
@@ -72,5 +72,7 @@ def hybrid_state_dict_to_params(sd: Mapping[str, torch.Tensor], cfg: ZonosConfig
         else:
             groups.append(stack_layers([_layer_params(c, nxt + j, False) for j in range(v)]))
             nxt += v
-    return {"groups": groups,
-            "norm_f": {"scale": c.arr("backbone.norm_f.weight"), "bias": c.arr("backbone.norm_f.bias")}}
+    norm_f = {"scale": c.arr("backbone.norm_f.weight")}
+    if "backbone.norm_f.bias" in c.sd:
+        norm_f["bias"] = c.arr("backbone.norm_f.bias")
+    return {"groups": groups, "norm_f": norm_f}
